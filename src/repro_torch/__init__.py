@@ -1,0 +1,12 @@
+"""repro_torch — the MDRQ engine in PyTorch, with its kernels in CUDA for Hopper.
+
+A port of the JAX package ``repro`` that mirrors its layout (``core/``,
+``kernels/``, ``obs/``, ``serve/``, ``data/``) and module names. It imports
+``torch`` and numpy, never ``jax`` and nothing of ``repro``.
+
+Device rule: every entry point runs on ``cuda`` unless the caller passes
+``device="cpu"``. On a CUDA tensor the kernel wrappers launch the hand-written
+CUDA kernels (built from ``kernels/csrc`` at first use); on a CPU tensor they
+run the plain PyTorch versions in ``kernels/ref.py``. The plain versions run on
+CUDA only when asked for with ``backend="torch"``.
+"""

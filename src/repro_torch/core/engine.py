@@ -1,0 +1,417 @@
+"""MDRQEngine — a registry of access paths behind one query interface.
+
+Ports ``repro/core/engine.py`` for the scan slice. The engine places a
+columnar dataset on one device, wraps the columnar scan in its two
+``core.paths`` adapters (``scan`` and ``scan_vertical``), and answers range
+queries either with an explicitly named path or through the planner
+("auto").
+
+Batched execution: ``query_batch`` takes a whole stream of queries at once.
+The planner's vectorized fixpoint (``Planner.plan_batch``) assigns every
+query an access path, each bucket executes through one fused multi-query
+launch that carries the ``ResultSpec``'s on-device reducer, one counted
+``device_get`` brings the payload back, and the spec's host finalizer types
+the per-query results. ``BatchStats`` splits ``plan_seconds`` from execution.
+
+Device rule: the engine runs on ``cuda`` unless the caller passes
+``device="cpu"``; with no card the default fails loudly. ``backend="torch"``
+runs the plain PyTorch versions of the kernels on the same device — the
+reference the hand kernels are held against.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Sequence, Union
+
+import torch
+
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
+from repro_torch.kernels import ops
+from repro_torch.core import types as T
+from repro_torch.core import scan as scan_mod
+from repro_torch.core import paths as paths_mod
+from repro_torch.core.planner import CostModel, Histograms, Planner
+
+# The structures this slice builds, and the slice of the port that brings
+# each of the others.
+STRUCTURES = ("scan",)
+LATER_STRUCTURES = {
+    "kdtree": "slice 2 (the two-phase index paths)",
+    "rstar": "slice 2 (the two-phase index paths)",
+    "vafile": "slice 2 (the two-phase index paths)",
+    "rowscan": "a later slice, with the row-major scan kernel",
+}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means ``cuda``; a CUDA device with no card raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on cuda by default and no CUDA device is "
+            "available; pass device='cpu' to run the plain versions")
+    return dev
+
+
+@dataclasses.dataclass
+class QueryStats:
+    method: str
+    seconds: float
+    n_results: int
+    est_selectivity: float
+
+
+@dataclasses.dataclass
+class BatchStats:
+    """Aggregate statistics of one ``query_batch`` execution.
+
+    ``seconds`` is the whole wall time (planning + execution);
+    ``plan_seconds`` is the planning share of it.
+    """
+
+    n_queries: int
+    seconds: float
+    method_counts: dict[str, int]
+    n_results: int
+    plan_seconds: float = 0.0
+    # per-query chosen path, positionally aligned with the input batch
+    methods: Optional[list[str]] = None
+
+    @property
+    def qps(self) -> float:
+        return self.n_queries / self.seconds if self.seconds > 0 else 0.0
+
+
+def _n_results(spec: T.ResultSpec, results: Sequence) -> int:
+    """Total result magnitude across per-query results, typed by the spec."""
+    return int(sum(spec.result_size(r) for r in results))
+
+
+@dataclasses.dataclass
+class PendingBatch:
+    """An in-flight batch: device work launched, host finalization deferred.
+
+    Produced by ``MDRQEngine.launch_batch``; ``finalize()`` performs each
+    bucket's single counted ``ops.device_get`` and the spec's host
+    finalizers, returning the per-query results positionally aligned with the
+    input. ``stats`` is filled by ``finalize()`` but not written to
+    ``engine.last_batch_stats``.
+    """
+
+    n_queries: int
+    spec: T.ResultSpec
+    methods: list[str]
+    method_counts: dict[str, int]
+    plan_seconds: float
+    launch_seconds: float
+    # per-bucket (input positions, in-flight device payload | None, finalize)
+    _parts: list = dataclasses.field(default_factory=list)
+    stats: Optional[BatchStats] = None
+
+    def finalize(self) -> list:
+        """Host stage: sync each bucket's payload, run the host finalizers,
+        scatter per-query results back to input order. Call once."""
+        t0 = time.perf_counter()
+        results: list = [None] * self.n_queries
+        for idxs, payload, fin in self._parts:
+            host = ops.device_get(payload) if payload is not None else None
+            out = fin(host)
+            for k, res in zip(idxs, out):
+                results[k] = res
+        dt = time.perf_counter() - t0
+        self.stats = BatchStats(
+            n_queries=self.n_queries,
+            seconds=self.plan_seconds + self.launch_seconds + dt,
+            method_counts=dict(self.method_counts),
+            n_results=_n_results(self.spec, results),
+            plan_seconds=self.plan_seconds,
+            methods=list(self.methods),
+        )
+        return results
+
+
+def _lookup_path(paths: dict, method: str) -> paths_mod.AccessPath:
+    path = paths.get(method)
+    if path is None:
+        raise ValueError(f"unknown method {method!r}; "
+                         f"options: {tuple(paths)} or 'auto'")
+    return path
+
+
+def _as_batch(queries) -> Optional[T.QueryBatch]:
+    if isinstance(queries, T.QueryBatch):
+        return queries
+    queries = list(queries)
+    return T.QueryBatch.from_queries(queries) if queries else None
+
+
+class MDRQEngine:
+    """Build-once, query-many MDRQ engine over one device."""
+
+    def __init__(
+        self,
+        dataset: T.Dataset,
+        structures: tuple[str, ...] = STRUCTURES,
+        tile_n: int = 1024,
+        device=None,
+        backend: str = "auto",
+    ):
+        for name in structures:
+            if name in LATER_STRUCTURES:
+                raise ValueError(f"structure {name!r} arrives with "
+                                 f"{LATER_STRUCTURES[name]} of the port")
+            if name not in STRUCTURES:
+                raise ValueError(f"unknown structure {name!r}; "
+                                 f"options: {STRUCTURES}")
+        self.dataset = dataset
+        self.tile_n = tile_n
+        self.device = resolve_device(device)
+        self.columnar = scan_mod.build_columnar_scan(
+            dataset, tile_n=tile_n, device=self.device, backend=backend)
+        self.hist = Histograms.build(dataset)
+        self.paths: dict[str, paths_mod.AccessPath] = {}
+        self.register_path(paths_mod.ColumnarScanPath(self.columnar))
+        self.register_path(paths_mod.VerticalScanPath(lambda: self.columnar))
+        # The planner shares the registry dict: paths registered later are
+        # planned without rebuilding anything.
+        self.planner = Planner(
+            self.hist, CostModel(n=dataset.n, m=dataset.m, tile_n=tile_n),
+            paths=self.paths)
+        self.last_stats: Optional[QueryStats] = None
+        self.last_batch_stats: Optional[BatchStats] = None
+        self.last_trace: Optional[obs_tracing.BatchTrace] = None
+
+    # -- the registry ------------------------------------------------------
+    def register_path(self, path: paths_mod.AccessPath) -> None:
+        """Register (or replace) an access path under ``path.name``; the
+        planner sees it immediately."""
+        for attr in ("name", "plannable", "owns_storage", "nbytes_index",
+                     "query", "count", "query_batch", "cost", "cost_batch"):
+            if not hasattr(path, attr):
+                raise TypeError(f"access path lacks {attr!r} "
+                                f"(see core.paths.AccessPath)")
+        self.paths[path.name] = path
+
+    @staticmethod
+    def _path_query_batch(path, sub: T.QueryBatch, spec: T.ResultSpec) -> list:
+        """Run one bucket through a path under ``spec``. A path whose
+        ``query_batch`` takes no spec serves Ids only."""
+        if paths_mod.takes_spec(path.query_batch):
+            return path.query_batch(sub, spec=spec)
+        if spec.kind == "ids":
+            return path.query_batch(sub)
+        raise ValueError(f"path {path.name!r} predates the ResultSpec "
+                         f"protocol and cannot serve spec {spec.kind!r}")
+
+    def _plan(self, batch: T.QueryBatch, method: str, spec: T.ResultSpec):
+        """-> (BatchPlan or None, per-query methods)."""
+        with obs_tracing.span("plan", n_queries=len(batch)):
+            if method == "auto":
+                bp = self.planner.plan_batch(batch, spec=spec)
+                return bp, bp.methods
+            _lookup_path(self.paths, method)  # raise before work
+            return None, [method] * len(batch)
+
+    @staticmethod
+    def _buckets(methods: list[str]) -> dict[str, list[int]]:
+        buckets: dict[str, list[int]] = {}
+        for k, meth in enumerate(methods):
+            buckets.setdefault(meth, []).append(k)
+        return buckets
+
+    @staticmethod
+    def _count_served(buckets: dict[str, list[int]]) -> None:
+        reg = obs_metrics.registry()
+        reg.counter("mdrq_query_batches_total",
+                    help="query_batch executions").inc()
+        for meth, idxs in buckets.items():
+            reg.counter("mdrq_queries_total",
+                        help="queries served, by access path",
+                        path=meth).inc(len(idxs))
+
+    def launch_batch(
+        self,
+        queries: Union[T.QueryBatch, Sequence[T.RangeQuery]],
+        method: str = "auto",
+        spec: Optional[T.ResultSpec] = None,
+    ) -> PendingBatch:
+        """Device stage of a split ``query_batch`` -> a ``PendingBatch``.
+
+        Plans the batch and issues every bucket's fused launch without
+        synchronizing; ``PendingBatch.finalize()`` performs the deferred host
+        syncs + spec finalizers (one counted ``device_get`` per bucket — the
+        same budget as the synchronous path). Buckets whose path lacks the
+        split protocol execute synchronously inside this call.
+        """
+        spec = T.resolve_spec(spec)
+        batch = _as_batch(queries)
+        if batch is None or len(batch) == 0:
+            return PendingBatch(0, spec, [], {}, 0.0, 0.0)
+        if batch.m != self.dataset.m:
+            raise ValueError(f"batch dims {batch.m} != dataset dims "
+                             f"{self.dataset.m}")
+        spec.validate(self.dataset.m)
+        t0 = time.perf_counter()
+        _, methods = self._plan(batch, method, spec)
+        t1 = time.perf_counter()
+        buckets = self._buckets(methods)
+        pending = PendingBatch(
+            n_queries=len(batch), spec=spec, methods=list(methods),
+            method_counts={m: len(ix) for m, ix in buckets.items()},
+            plan_seconds=t1 - t0, launch_seconds=0.0)
+        for meth, idxs in buckets.items():
+            sub = T.QueryBatch(batch.lower[idxs], batch.upper[idxs])
+            path = _lookup_path(self.paths, meth)
+            with obs_tracing.span("execute", path=meth, bucket=len(idxs),
+                                  stage="launch"):
+                if paths_mod.supports_launch(path) \
+                        and paths_mod.takes_spec(path.launch_batch):
+                    payload, fin = path.launch_batch(sub, spec=spec)
+                else:
+                    out = self._path_query_batch(path, sub, spec)
+                    payload, fin = None, (lambda _h, _out=out: _out)
+            pending._parts.append((idxs, payload, fin))
+        pending.launch_seconds = time.perf_counter() - t1
+        self._count_served(buckets)
+        return pending
+
+    def query(self, q: T.RangeQuery, method: str = "auto",
+              spec: Optional[T.ResultSpec] = None):
+        """Execute q under a ResultSpec -> sorted ids (default ``Ids()``),
+        an int count, a bool mask, top-k ids, or an aggregate; records
+        QueryStats."""
+        if q.m != self.dataset.m:
+            raise ValueError(f"query dims {q.m} != dataset dims {self.dataset.m}")
+        spec = T.resolve_spec(spec).validate(self.dataset.m)
+        if method == "auto":
+            plan = self.planner.explain(q, spec=spec)
+            method, est = plan.method, plan.est_selectivity
+        else:
+            est = self.planner.hist.selectivity(q)
+        path = _lookup_path(self.paths, method)
+        t0 = time.perf_counter()
+        if spec.kind == "ids":      # dedicated single-query fast paths for
+            res = path.query(q)     # the two historical shapes; every other
+        elif spec.kind == "count":  # spec rides the batch rung at Q=1
+            res = path.count(q)
+        else:
+            res = self._path_query_batch(
+                path, T.QueryBatch.from_queries([q]), spec)[0]
+        dt = time.perf_counter() - t0
+        self.last_stats = QueryStats(method=method, seconds=dt,
+                                     n_results=spec.result_size(res),
+                                     est_selectivity=est)
+        return res
+
+    def query_batch(
+        self,
+        queries: Union[T.QueryBatch, Sequence[T.RangeQuery]],
+        method: str = "auto",
+        spec: Optional[T.ResultSpec] = None,
+        trace: bool = False,
+    ) -> list:
+        """Execute a batch of queries under a ResultSpec -> per-query typed
+        results (sorted id arrays by default).
+
+        Queries are bucketed by access path (the planner's vectorized
+        fixpoint when ``method="auto"``, or the explicit method for all) and
+        each bucket runs through a single fused multi-query launch carrying
+        the spec's on-device reducer. Results are positionally aligned with
+        the input and identical to per-query ``query`` calls; ``BatchStats``
+        land in ``last_batch_stats``.
+
+        ``trace=True`` installs an ``obs.Tracer`` for the duration and leaves
+        a ``BatchTrace`` in ``last_trace``: one ``QueryTrace`` per query plus
+        the span tree. With ``trace=False`` the span calls short-circuit to
+        ``obs.NULL_SPAN``.
+        """
+        spec = T.resolve_spec(spec)
+        batch = _as_batch(queries)
+        if batch is None or len(batch) == 0:
+            self.last_batch_stats = BatchStats(0, 0.0, {}, 0, methods=[])
+            return []
+        if batch.m != self.dataset.m:
+            raise ValueError(f"batch dims {batch.m} != dataset dims {self.dataset.m}")
+        spec.validate(self.dataset.m)
+
+        tracer = obs_tracing.Tracer() if trace else None
+        if tracer is not None:
+            tracer.__enter__()
+        try:
+            t0 = time.perf_counter()
+            bp, methods = self._plan(batch, method, spec)
+            plan_dt = time.perf_counter() - t0
+            buckets = self._buckets(methods)
+            results: list = [None] * len(batch)
+            for meth, idxs in buckets.items():
+                sub = T.QueryBatch(batch.lower[idxs], batch.upper[idxs])
+                with obs_tracing.span("execute", path=meth,
+                                      bucket=len(idxs)) as sp:
+                    out = self._path_query_batch(
+                        _lookup_path(self.paths, meth), sub, spec)
+                    sp.block_on(out)
+                for k, res in zip(idxs, out):
+                    results[k] = res
+            dt = time.perf_counter() - t0
+        finally:
+            if tracer is not None:
+                tracer.__exit__(None, None, None)
+
+        self._count_served(buckets)
+        self.last_batch_stats = BatchStats(
+            n_queries=len(batch),
+            seconds=dt,
+            method_counts={m: len(ix) for m, ix in buckets.items()},
+            n_results=_n_results(spec, results),
+            plan_seconds=plan_dt,
+            methods=list(methods),
+        )
+        if tracer is not None:
+            self.last_trace = self._build_trace(
+                tracer, batch, spec, bp, methods, buckets, results, plan_dt, dt)
+        return results
+
+    def _build_trace(self, tracer, batch, spec, bp, methods, buckets,
+                     results, plan_dt, dt) -> obs_tracing.BatchTrace:
+        """Assemble per-query ``QueryTrace`` records from the span tree and
+        the batch plan (estimates come from ``bp`` when the planner chose;
+        explicit-method runs get histogram selectivities and NaN cost)."""
+        n = self.dataset.n
+        mq = batch.dims_mask.sum(axis=1)
+        if bp is not None:
+            sels = bp.est_selectivity
+            path_row = {name: j for j, name in enumerate(bp.path_names)}
+        else:
+            sels = self.planner.plan_inputs(batch).sels
+            path_row = {}
+        # one execute span per bucket, keyed by its path attr
+        bucket_spans = {s.attrs.get("path"): s for s in tracer.find("execute")}
+        records = []
+        for k, meth in enumerate(methods):
+            bsize = len(buckets[meth])
+            sp = bucket_spans.get(meth)
+            res_size = spec.result_size(results[k])
+            obs_sel = (res_size / n if spec.kind in ("ids", "count", "mask")
+                       else None)
+            est_cost = (float(bp.costs[path_row[meth], k]) if bp is not None
+                        else float("nan"))
+            records.append(obs_tracing.QueryTrace(
+                index=k,
+                method=meth,
+                bucket_size=bsize,
+                est_selectivity=float(sels[k]),
+                est_cost=est_cost,
+                spec_kind=spec.kind,
+                mq=int(mq[k]),
+                result_size=res_size,
+                obs_selectivity=obs_sel,
+                seconds=(sp.seconds / bsize if sp is not None else 0.0),
+                launches=(sp.launches / bsize if sp is not None else 0.0),
+                host_syncs=(sp.host_syncs / bsize if sp is not None else 0.0),
+            ))
+        return obs_tracing.BatchTrace(
+            n=n, n_queries=len(batch), spec_kind=spec.kind,
+            plan_seconds=plan_dt, seconds=dt, queries=records,
+            spans=tracer.spans)

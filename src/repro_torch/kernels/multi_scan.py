@@ -1,0 +1,81 @@
+"""Fused multi-query (batched) columnar range scans.
+
+Ports ``repro/kernels/multi_scan.py`` (``multi_scan_tiles``,
+``multi_scan_vertical``): a (Q, m) batch of query boxes against the (m, n)
+columnar dataset in one launch, each data tile read from device memory once
+per batch, not once per query. On a CUDA tensor each wrapper launches its
+kernel in ``csrc/scan.cu`` (see the design note there); on a CPU tensor it
+runs the plain version in ``ref.py``.
+
+Query bounds are laid out **query-minor**: ``lower``/``upper`` are
+``(m_pad, Q)`` with one column per query.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.range_scan import (DEFAULT_TILE_N, check_tiling,
+                                            scan_cuda, vertical_cuda)
+
+
+def multi_scan_tiles(
+    data_cm: torch.Tensor,
+    lower: torch.Tensor,
+    upper: torch.Tensor,
+    *,
+    tile_n: int = DEFAULT_TILE_N,
+) -> torch.Tensor:
+    """Fused full scan of a query batch.
+
+    Args:
+      data_cm: (m_pad, n_pad) columnar data; m_pad % 8 == 0, n_pad % tile_n == 0.
+      lower, upper: (m_pad, Q) finite bounds, one column per query.
+
+    Returns:
+      (Q, n_pad) int8 match masks, row q = query q.
+    """
+    m_pad, n_pad = data_cm.shape
+    check_tiling(m_pad, n_pad, tile_n)
+    if lower.ndim != 2 or lower.shape[0] != m_pad or lower.shape[1] < 1 \
+            or upper.shape != lower.shape:
+        raise ValueError(f"bounds {tuple(lower.shape)}, {tuple(upper.shape)} "
+                         f"are not ({m_pad}, Q >= 1)")
+    if not data_cm.is_cuda:
+        return _ref.multi_scan_ref(data_cm, lower, upper)
+    return scan_cuda("multi_scan_tiles", data_cm, lower, upper)
+
+
+def multi_scan_vertical(
+    data_cm: torch.Tensor,
+    dim_ids: torch.Tensor,
+    lower: torch.Tensor,
+    upper: torch.Tensor,
+    *,
+    tile_n: int = DEFAULT_TILE_N,
+) -> torch.Tensor:
+    """Batched partial-match vertical scan.
+
+    Args:
+      data_cm: (m_pad, n_pad) columnar data.
+      dim_ids: (Q, D_max) int32 per-query constrained-dimension ids. Rows with
+        fewer than D_max constrained dims pad by *repeating* one of the
+        query's own dims (AND is idempotent); a match-all query uses dim 0,
+        whose bounds column carries dtype extrema and accepts everything.
+      lower, upper: (m_pad, Q) finite bounds (indexed by dim_ids).
+
+    Returns:
+      (Q, n_pad) int8 match masks over each query's constrained dims.
+    """
+    m_pad, n_pad = data_cm.shape
+    check_tiling(m_pad, n_pad, tile_n)
+    if dim_ids.ndim != 2 or dim_ids.shape[1] < 1:
+        raise ValueError(f"dim_ids must be (Q, D_max >= 1), got "
+                         f"{tuple(dim_ids.shape)}")
+    q_n = dim_ids.shape[0]
+    if lower.shape != (m_pad, q_n) or upper.shape != (m_pad, q_n):
+        raise ValueError(f"bounds {tuple(lower.shape)}, {tuple(upper.shape)} "
+                         f"!= ({m_pad}, {q_n})")
+    if not data_cm.is_cuda:
+        return _ref.multi_scan_vertical_ref(data_cm, dim_ids, lower, upper)
+    return vertical_cuda("multi_scan_vertical", data_cm, dim_ids, lower, upper)

@@ -1,0 +1,272 @@
+"""Counted public ops around the MDRQ kernels.
+
+Ports ``repro/kernels/ops.py``: the layout/padding policy (pad m to
+``SUBLANES`` with match-all bounds, n to the tile size with +inf objects that
+never match), the dtype of the bounds, and one launch counter per op.
+
+Backend: every op takes ``backend``. Under ``"auto"`` (the default) the
+kernel wrappers follow the tensor's device — the hand-written CUDA kernels
+for a CUDA tensor, the plain PyTorch versions (``ref.py``) for a CPU tensor.
+``"torch"`` runs the plain versions on any device; it exists so a caller can
+hold the kernels against them on the card. Nothing falls back silently: a
+kernel that fails to build or launch raises.
+
+Instrumentation: every public op is built by ``counted`` — a wrapper that
+bumps a named launch counter in the metrics registry (family
+``mdrq_launches_total{op=...}``) before delegating — and ``device_get`` is
+the counted device->host transfer point. Tests use the counters to assert
+launch/sync budgets (one fused launch and one host sync per bucket) that
+wall-clock measurements cannot see. ``kernel_launches()`` separately reports
+how often each CUDA kernel was actually launched.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import multi_scan as _ms
+from repro_torch.kernels import range_scan as _rs
+from repro_torch.kernels import ref as _ref
+from repro_torch.obs import metrics as _obs_metrics
+
+BACKENDS = ("auto", "torch")
+
+
+def check_backend(backend: str) -> str:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; options: {BACKENDS}")
+    return backend
+
+
+# -- launch / transfer instrumentation ---------------------------------------
+_LAUNCH_FAMILY = "mdrq_launches_total"
+_LAUNCH_HELP = ("Kernel launches (and device->host transfers, op=host_sync) "
+                "counted per public op wrapper call")
+# op name -> its registry Counter. Cached so the per-launch cost is one dict
+# lookup + one float add; registry reset() keeps these objects live.
+_COUNTERS: dict[str, _obs_metrics.Counter] = {}
+
+
+def _bump(name: str) -> None:
+    c = _COUNTERS.get(name)
+    if c is None:
+        c = _obs_metrics.registry().counter(_LAUNCH_FAMILY, help=_LAUNCH_HELP,
+                                            op=name)
+        _COUNTERS[name] = c
+    c.inc()
+
+
+def counter(name: str) -> int:
+    """Launches of op ``name`` (or ``"host_sync"`` transfers) since reset."""
+    c = _COUNTERS.get(name)
+    return int(c.value) if c is not None else 0
+
+
+def counters() -> dict[str, int]:
+    """Nonzero per-op launch counts since the last reset."""
+    return {name: int(c.value) for name, c in _COUNTERS.items() if c.value}
+
+
+def reset_counters() -> None:
+    for c in _COUNTERS.values():
+        c.reset()
+
+
+def kernel_launches() -> dict[str, int]:
+    """CUDA kernel launches per kernel wrapper since the last reset (plain
+    versions never count)."""
+    return dict(_build.LAUNCHES)
+
+
+def reset_kernel_launches() -> None:
+    _build.reset_launches()
+
+
+def device_get(x):
+    """Counted device->host transfer — the host-sync tax the cost model prices.
+
+    Accepts a single tensor or a payload tuple/list (the ResultSpec reducers
+    return e.g. ``(values, indices, counts)``); either way it is one logical
+    synchronization, counted once. Returns numpy arrays.
+    """
+    _bump("host_sync")
+    if isinstance(x, (tuple, list)):
+        return tuple(t.cpu().numpy() for t in x)
+    return x.cpu().numpy()
+
+
+def counted(name: str, doc: str):
+    """Build a public op: bump the named launch counter, then delegate. One
+    definition keeps every op in the accounting."""
+    def deco(fn):
+        def wrapper(*args, **kwargs):
+            _bump(name)
+            return fn(*args, **kwargs)
+        wrapper.__name__ = wrapper.__qualname__ = name
+        wrapper.__doc__ = doc
+        wrapper.__wrapped__ = fn
+        return wrapper
+    return deco
+
+
+# -- layout and bounds ---------------------------------------------------------
+
+def prepare_columnar(
+    cols: np.ndarray, tile_n: int = _rs.DEFAULT_TILE_N
+) -> tuple[np.ndarray, int, int]:
+    """Pad (m, n) columnar data for the kernels.
+
+    Dim padding rows are 0.0 (queried with match-all bounds); object padding
+    columns are +inf (never match any finite upper bound).
+
+    Returns (padded float32 array, m, n) with the original sizes.
+    """
+    from repro_torch.core import types as T  # deferred: breaks ops<->core cycle
+    m, n = cols.shape
+    x = T.pad_axis(cols, 0, _rs.SUBLANES, 0.0)
+    x = T.pad_axis(x, 1, tile_n, np.inf)
+    return np.asarray(x, dtype=np.float32), m, n
+
+
+def query_bounds_device(q, m_pad: int, dtype: torch.dtype,
+                        device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(m_pad, 1) finite device bounds for a query (pad rows = match-all).
+
+    ``dtype`` threads into the match-all substitution so the extrema stay
+    finite *in the comparison dtype*.
+    """
+    from repro_torch.core import types as T
+    lo, up = T.padded_query_bounds(q, m_pad)
+    lo, up = T.finite_query_bounds(lo, up, dtype=dtype)
+    return (torch.as_tensor(lo.reshape(-1, 1), device=device).to(dtype),
+            torch.as_tensor(up.reshape(-1, 1), device=device).to(dtype))
+
+
+def batch_bounds_device(batch, m_pad: int, dtype: torch.dtype, device,
+                        q_pad: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(m_pad, q_pad or Q) finite device bounds for a QueryBatch.
+
+    Pad rows — and padding query columns beyond Q when ``q_pad`` rounds the
+    batch to a bucket — are match-all in ``dtype``'s finite extrema; callers
+    drop their output rows.
+    """
+    from repro_torch.core import types as T
+    if not isinstance(batch, T.QueryBatch):
+        batch = T.QueryBatch.from_queries(list(batch))
+    lo, up = batch.bounds_columnar(m_pad, q_pad, dtype=dtype)
+    return (torch.as_tensor(lo, device=device).to(dtype),
+            torch.as_tensor(up, device=device).to(dtype))
+
+
+def dim_ids_device(dim_ids: np.ndarray, m_pad: int, device) -> torch.Tensor:
+    """Constrained-dim ids as a device int32 tensor, range-checked on the
+    host (the vertical kernel clamps rather than reads out of bounds)."""
+    ids = np.asarray(dim_ids, np.int32)
+    if ids.size and (ids.min() < 0 or ids.max() >= m_pad):
+        raise ValueError(f"dim ids out of range [0, {m_pad})")
+    return torch.as_tensor(ids, device=device)
+
+
+# -- the mask kernels, per backend --------------------------------------------
+
+def _scan_masks(data_cm, lower, upper, *, tile_n=_rs.DEFAULT_TILE_N,
+                backend="auto"):
+    if check_backend(backend) == "torch":
+        return _ref.multi_scan_ref(data_cm, lower, upper)
+    return _ms.multi_scan_tiles(data_cm, lower, upper, tile_n=tile_n)
+
+
+def _vertical_masks(data_cm, dim_ids, lower, upper, *,
+                    tile_n=_rs.DEFAULT_TILE_N, backend="auto"):
+    if check_backend(backend) == "torch":
+        return _ref.multi_scan_vertical_ref(data_cm, dim_ids, lower, upper)
+    return _ms.multi_scan_vertical(data_cm, dim_ids, lower, upper,
+                                   tile_n=tile_n)
+
+
+def _range_scan(data_cm, lower, upper, *, tile_n=_rs.DEFAULT_TILE_N,
+                backend="auto"):
+    if check_backend(backend) == "torch":
+        return _ref.range_scan_ref(data_cm, lower, upper)
+    return _rs.range_scan_tiles(data_cm, lower, upper, tile_n=tile_n)
+
+
+range_scan = counted(
+    "range_scan",
+    "Full vectorized range scan over padded columnar data -> (n_pad,) int8.",
+)(_range_scan)
+
+
+def _range_scan_vertical(data_cm, dim_ids, lower, upper, *,
+                         tile_n=_rs.DEFAULT_TILE_N, backend="auto"):
+    if check_backend(backend) == "torch":
+        d = dim_ids.long()
+        return _ref.range_scan_ref(data_cm[d], lower[d, 0], upper[d, 0])
+    return _rs.range_scan_vertical(data_cm, dim_ids, lower, upper,
+                                   tile_n=tile_n)
+
+
+range_scan_vertical = counted(
+    "range_scan_vertical",
+    "Partial-match scan touching only queried dims -> (n_pad,) int8.",
+)(_range_scan_vertical)
+
+
+multi_range_scan = counted(
+    "multi_range_scan",
+    "Fused full scan of a query batch -> (Q, n_pad) int8 masks.",
+)(_scan_masks)
+
+multi_range_scan_vertical = counted(
+    "multi_range_scan_vertical",
+    "Batched partial-match scan -> (Q, n_pad) int8 masks.",
+)(_vertical_masks)
+
+
+# -- fused spec-reduce launches (the ResultSpec layer's device half) ----------
+# Each op composes a mask kernel with the spec's on-device reducer in ONE
+# counted op, so a reduced result shape — count, top-k, aggregate — is one
+# fused launch and, with the single ``device_get`` of the payload, one host
+# sync per batch. The identity specs (Ids/Mask) flow through unchanged: their
+# "payload" is the mask itself.
+
+def _multi_scan_reduce(data_cm, lower, upper, *, spec,
+                       tile_n=_rs.DEFAULT_TILE_N, backend="auto"):
+    mask = _scan_masks(data_cm, lower, upper, tile_n=tile_n, backend=backend)
+    return spec.device_reduce(mask, data_cm, tile_n=tile_n, backend=backend)
+
+
+multi_scan_reduce = counted(
+    "multi_scan_reduce",
+    "Fused full scan of a query batch + the ResultSpec's on-device reducer "
+    "in one launch -> the spec's payload (masks for Ids/Mask, (Q,) counts, "
+    "(Q, k) top-k values/positions, (Q,) aggregates).",
+)(_multi_scan_reduce)
+
+
+def _multi_scan_vertical_reduce(data_cm, dim_ids, lower, upper, *, spec,
+                                tile_n=_rs.DEFAULT_TILE_N, backend="auto"):
+    mask = _vertical_masks(data_cm, dim_ids, lower, upper, tile_n=tile_n,
+                           backend=backend)
+    return spec.device_reduce(mask, data_cm, tile_n=tile_n, backend=backend)
+
+
+multi_scan_vertical_reduce = counted(
+    "multi_scan_vertical_reduce",
+    "Batched partial-match scan + ResultSpec reducer in one launch.",
+)(_multi_scan_vertical_reduce)
+
+
+def _mask_counts(mask: torch.Tensor) -> torch.Tensor:
+    return mask.ne(0).sum(dim=-1, dtype=torch.int32)
+
+
+mask_counts = counted(
+    "mask_counts",
+    "On-device match counts over the object axis (count-only result mode). "
+    "Works for both (n_pad,) single-query and (Q, n_pad) batched masks; "
+    "padding objects are +inf sentinels that never match, so summing the "
+    "padded axis is exact.",
+)(_mask_counts)

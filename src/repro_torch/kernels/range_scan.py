@@ -1,0 +1,163 @@
+"""Single-query columnar range scans, and the launch plumbing every scan shares.
+
+Ports ``repro/kernels/range_scan.py`` (``range_scan_tiles``,
+``range_scan_vertical``). On the card each is the Q=1 launch of the batched
+kernel body in ``csrc/scan.cu`` (``multi_scan_kernel``,
+``multi_scan_vertical_kernel``); on a CPU tensor it runs the plain version.
+
+Layout and padding contract (``ops.prepare_columnar``): data is
+dimension-major ``(m_pad, n_pad)``; m pads to a multiple of ``SUBLANES`` with
+rows of 0.0 that carry match-all bounds, n pads to a multiple of ``tile_n``
+with ``+inf`` objects that never match a finite upper bound. Bounds are finite
+and cast to the data dtype before comparing.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+
+# The padding contract the reference's TPU layout fixed; the port keeps it so
+# both packages pad a dataset to the same array.
+LANES = 128
+SUBLANES = 8
+DEFAULT_TILE_N = 1024
+
+VEC = 4  # objects per CUDA thread (csrc/common.cuh)
+
+
+def check_tiling(m_pad: int, n_pad: int, tile_n: int) -> None:
+    """Raise unless the padded shape satisfies the padding contract."""
+    if m_pad % SUBLANES:
+        raise ValueError(f"m_pad={m_pad} is not a multiple of {SUBLANES}")
+    if tile_n % LANES or n_pad % tile_n:
+        raise ValueError(f"n_pad={n_pad} / tile_n={tile_n}: need "
+                         f"n_pad % tile_n == 0 and tile_n % {LANES} == 0")
+
+
+def block_threads(n_pad: int) -> int:
+    """Threads per block: the largest of 256..32 whose tile of
+    ``4 * threads`` objects divides ``n_pad`` (always found for
+    ``n_pad % 128 == 0``)."""
+    for t in (256, 128, 64, 32):
+        if n_pad % (VEC * t) == 0:
+            return t
+    raise ValueError(f"n_pad={n_pad} is not a multiple of {VEC * 32}")
+
+
+def cuda_input(x: torch.Tensor, dtype: torch.dtype, name: str,
+               device: torch.device) -> torch.Tensor:
+    """Check a kernel input on the card: device, dtype, contiguity and the
+    16-byte alignment of the vector loads."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, the kernel takes {dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    return x
+
+
+def bounds_input(b: torch.Tensor, name: str, data: torch.Tensor) -> torch.Tensor:
+    """Bounds cast to the data dtype (the comparison dtype), contiguous."""
+    if b.device != data.device:
+        raise ValueError(f"{name} is on {b.device}, data on {data.device}")
+    return b.to(data.dtype).contiguous()
+
+
+def scan_cuda(name: str, data_cm: torch.Tensor, lower: torch.Tensor,
+              upper: torch.Tensor) -> torch.Tensor:
+    """Launch ``multi_scan_kernel`` -> (Q, n_pad) int8; counted as ``name``."""
+    dev = data_cm.device
+    data = cuda_input(data_cm, torch.float32, "data_cm", dev)
+    m_pad, n_pad = data.shape
+    q_n = lower.shape[1]
+    lo = bounds_input(lower, "lower", data)
+    up = bounds_input(upper, "upper", data)
+    out = torch.empty((q_n, n_pad), dtype=torch.int8, device=dev)
+    _build.launch(name, "mdrq_multi_scan", dev, data, n_pad, m_pad, lo, up,
+                  q_n, out, block_threads(n_pad))
+    return out
+
+
+def vertical_cuda(name: str, data_cm: torch.Tensor, dim_ids: torch.Tensor,
+                  lower: torch.Tensor, upper: torch.Tensor) -> torch.Tensor:
+    """Launch ``multi_scan_vertical_kernel`` -> (Q, n_pad) int8; counted as
+    ``name``. ``dim_ids`` is (Q, D_max) with every id in [0, m_pad)."""
+    dev = data_cm.device
+    data = cuda_input(data_cm, torch.float32, "data_cm", dev)
+    m_pad, n_pad = data.shape
+    q_n, d_max = dim_ids.shape
+    if d_max < 1:
+        raise ValueError("dim_ids lists no dimension")
+    if dim_ids.device != dev:
+        raise ValueError(f"dim_ids is on {dim_ids.device}, data on {dev}")
+    ids = dim_ids.to(torch.int32).contiguous()
+    lo = bounds_input(lower, "lower", data)
+    up = bounds_input(upper, "upper", data)
+    out = torch.empty((q_n, n_pad), dtype=torch.int8, device=dev)
+    _build.launch(name, "mdrq_multi_scan_vertical", dev, data, n_pad, m_pad,
+                  ids, d_max, lo, up, q_n, out, block_threads(n_pad))
+    return out
+
+
+def range_scan_tiles(
+    data_cm: torch.Tensor,
+    lower: torch.Tensor,
+    upper: torch.Tensor,
+    *,
+    tile_n: int = DEFAULT_TILE_N,
+) -> torch.Tensor:
+    """Full columnar range scan of one query.
+
+    Args:
+      data_cm: (m_pad, n_pad) columnar data; m_pad % 8 == 0, n_pad % tile_n == 0.
+      lower, upper: (m_pad, 1) finite bounds.
+
+    Returns:
+      (n_pad,) int8 match mask.
+    """
+    m_pad, n_pad = data_cm.shape
+    check_tiling(m_pad, n_pad, tile_n)
+    if lower.shape != (m_pad, 1) or upper.shape != (m_pad, 1):
+        raise ValueError(f"bounds {tuple(lower.shape)}, {tuple(upper.shape)} "
+                         f"!= ({m_pad}, 1)")
+    if not data_cm.is_cuda:
+        return _ref.range_scan_ref(data_cm, lower, upper)
+    return scan_cuda("range_scan_tiles", data_cm, lower, upper)[0]
+
+
+def range_scan_vertical(
+    data_cm: torch.Tensor,
+    dim_ids: torch.Tensor,
+    lower: torch.Tensor,
+    upper: torch.Tensor,
+    *,
+    tile_n: int = DEFAULT_TILE_N,
+) -> torch.Tensor:
+    """Partial-match scan of one query touching only the listed dimensions.
+
+    Args:
+      data_cm: (m_pad, n_pad) columnar data.
+      dim_ids: (n_qdims,) int32 ids of the queried dimensions (n_qdims >= 1).
+      lower, upper: (m_pad, 1) finite bounds (indexed by dim_ids).
+
+    Returns:
+      (n_pad,) int8 match mask over the queried dimensions only.
+    """
+    m_pad, n_pad = data_cm.shape
+    check_tiling(m_pad, n_pad, tile_n)
+    if dim_ids.ndim != 1 or dim_ids.shape[0] < 1:
+        raise ValueError(f"dim_ids must be (n_qdims >= 1,), got "
+                         f"{tuple(dim_ids.shape)}")
+    if lower.shape != (m_pad, 1) or upper.shape != (m_pad, 1):
+        raise ValueError(f"bounds {tuple(lower.shape)}, {tuple(upper.shape)} "
+                         f"!= ({m_pad}, 1)")
+    if not data_cm.is_cuda:
+        d = dim_ids.long()
+        return _ref.range_scan_ref(data_cm[d], lower[d, 0], upper[d, 0])
+    return vertical_cuda("range_scan_vertical", data_cm, dim_ids[None, :],
+                         lower, upper)[0]

@@ -1,0 +1,156 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: without a CUDA device every test here skips. On a machine
+with one (the repository's ``tests/conftest.py`` imports the JAX package, so
+run these without it):
+
+    python -m pytest -q --noconftest tests/test_torch_cuda.py
+
+Shapes go past the GMRQB case ``chip_smoke.py`` covers: padded object counts
+that force smaller thread blocks, a 100-dimensional dataset whose tile must
+shrink to fit shared memory, query counts that cross the kernels' 32-query
+groups, and the 64-bit offsets of a mask past 2**31 bytes. Masks must be
+exactly equal; sums within rtol=1e-5 (float32 sums in another order) and
+bit-identical across repeated runs; min/max exactly equal.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import (Agg, Count, Ids, Mask, MDRQEngine, QueryBatch,
+                              RangeQuery, TopK)
+from repro_torch.data import gmrqb
+from repro_torch.kernels import multi_scan, ops, range_scan, ref, reducers
+
+pytestmark = pytest.mark.cuda
+SUM_RTOL = 1e-5
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ops.reset_kernel_launches()
+    return torch.device("cuda")
+
+
+def _case(m, n, n_q, tile_n, seed, dev):
+    rng = np.random.default_rng(seed)
+    cols = rng.random((m, n), dtype=np.float32)
+    cols[0] = rng.integers(0, 3, size=n)   # ties for the top-k
+    padded, _, _ = ops.prepare_columnar(cols, tile_n)
+    qs = []
+    for k in range(n_q):
+        a, b = cols[:, rng.integers(n)], cols[:, rng.integers(n)]
+        lo, up = np.minimum(a, b) - 0.2, np.maximum(a, b) + 0.2
+        if k % 2:
+            dims = rng.choice(m, size=int(rng.integers(1, min(m, 40) + 1)),
+                              replace=False)
+            qs.append(RangeQuery.partial(
+                m, {int(d): (float(lo[d]), float(up[d])) for d in dims}))
+        else:
+            qs.append(RangeQuery.complete(lo, up))
+    batch = QueryBatch.from_queries(qs)
+    lo, up = batch.bounds_columnar(padded.shape[0])
+    return (torch.as_tensor(padded, device=dev), batch,
+            torch.as_tensor(lo, device=dev), torch.as_tensor(up, device=dev))
+
+
+SHAPES = [(5, 2900, 1, 128), (5, 2900, 33, 128), (19, 20000, 64, 1024),
+          (100, 4096, 40, 512)]
+
+
+@pytest.mark.parametrize("m,n,n_q,tile_n", SHAPES)
+def test_scan_kernels_match_plain(dev, m, n, n_q, tile_n):
+    data, batch, lo, up = _case(m, n, n_q, tile_n, seed=m + n_q, dev=dev)
+    got = multi_scan.multi_scan_tiles(data, lo, up, tile_n=tile_n)
+    assert torch.equal(got, ref.multi_scan_ref(data, lo, up))
+    ids = torch.as_tensor(batch.padded_dim_ids(), device=dev)
+    got = multi_scan.multi_scan_vertical(data, ids, lo, up, tile_n=tile_n)
+    assert torch.equal(got, ref.multi_scan_vertical_ref(data, ids, lo, up))
+    one = range_scan.range_scan_tiles(data, lo[:, :1].contiguous(),
+                                      up[:, :1].contiguous(), tile_n=tile_n)
+    assert torch.equal(one, ref.range_scan_ref(data, lo[:, :1], up[:, :1]))
+    k = 1 if n_q > 1 else 0
+    dims = torch.as_tensor(np.nonzero(batch[k].dims_mask)[0].astype(np.int32),
+                           device=dev)
+    lk, uk = lo[:, k:k + 1].contiguous(), up[:, k:k + 1].contiguous()
+    one = range_scan.range_scan_vertical(data, dims, lk, uk, tile_n=tile_n)
+    d = dims.long()
+    assert torch.equal(one, ref.range_scan_ref(data[d], lk[d, 0], uk[d, 0]))
+    assert ops.kernel_launches() == {"multi_scan_tiles": 1,
+                                     "multi_scan_vertical": 1,
+                                     "range_scan_tiles": 1,
+                                     "range_scan_vertical": 1}
+
+
+@pytest.mark.parametrize("m,n,n_q,tile_n", SHAPES)
+def test_reducer_kernels_match_plain(dev, m, n, n_q, tile_n):
+    data, _, lo, up = _case(m, n, n_q, tile_n, seed=m * n_q, dev=dev)
+    masks = ref.multi_scan_ref(data, lo, up)
+    vals = data[1]
+    for fill in (float("-inf"), float("inf"), 0.0):
+        assert torch.equal(reducers.masked_fill_tiles(masks, vals, fill,
+                                                      tile_n=tile_n),
+                           ref.masked_fill_ref(masks, vals, fill))
+    for op in ("sum", "min", "max"):
+        got = reducers.masked_agg_tiles(masks, vals, op, tile_n=tile_n)
+        want = ref.masked_agg_ref(masks, vals, op)
+        if op == "sum":
+            torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=0.0)
+            assert torch.equal(got, reducers.masked_agg_tiles(
+                masks, vals, op, tile_n=tile_n))
+        else:
+            assert torch.equal(got, want)
+    for largest in (True, False):
+        got = reducers.masked_topk(masks, data[0], 12, largest, tile_n=tile_n,
+                                   backend="auto")
+        want = reducers.masked_topk(masks, data[0], 12, largest,
+                                    tile_n=tile_n, backend="torch")
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_mask_offsets_past_int32(dev):
+    """Q * n_pad > 2**31: rows past the 32-bit boundary are still right."""
+    m, n, n_q = 8, 17 * 2 ** 20, 128
+    g = torch.Generator(device=dev).manual_seed(0)
+    data = torch.rand((m, n), device=dev, generator=g)
+    lo = torch.full((m, n_q), 0.1, device=dev)
+    up = torch.full((m, n_q), 0.9, device=dev)
+    lo[0] = torch.linspace(0.0, 0.5, n_q, device=dev)
+    got = multi_scan.multi_scan_tiles(data, lo, up, tile_n=1024)
+    assert got.numel() > 2 ** 31
+    for q in (0, 126, 127):
+        assert torch.equal(got[q], ref.range_scan_ref(data, lo[:, q], up[:, q]))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    data = torch.zeros((8, 1024), device=dev, dtype=torch.float64)
+    b = torch.zeros((8, 2), device=dev)
+    with pytest.raises(TypeError):
+        multi_scan.multi_scan_tiles(data, b, b, tile_n=1024)
+    strided = torch.zeros((8, 2048), device=dev)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        multi_scan.multi_scan_tiles(strided, b, b, tile_n=1024)
+    with pytest.raises(ValueError, match="is on"):
+        multi_scan.multi_scan_tiles(torch.zeros((8, 1024), device=dev),
+                                    b.cpu(), b.cpu(), tile_n=1024)
+
+
+@pytest.mark.parametrize("spec", [Ids(), Count(), Mask(), TopK(k=10, dim=4),
+                                  TopK(k=10, dim=4, largest=False),
+                                  Agg("sum", 3), Agg("min", 2), Agg("max", 18)],
+                         ids=str)
+def test_engine_matches_plain_backend(dev, spec):
+    ds = gmrqb.build(50_000, seed=1)
+    qs = [q for _, q in gmrqb.mixed_workload(ds, 48, seed=1)]
+    got = MDRQEngine(ds, tile_n=1024).query_batch(qs, spec=spec)
+    want = MDRQEngine(ds, tile_n=1024, backend="torch").query_batch(qs, spec=spec)
+    for g, w in zip(got, want):
+        if isinstance(w, np.ndarray):
+            np.testing.assert_array_equal(g, w)
+        elif spec.kind == "agg" and spec.op == "sum":
+            np.testing.assert_allclose(g, w, rtol=SUM_RTOL)
+        else:
+            assert g == w or (np.isnan(g) and np.isnan(w))
