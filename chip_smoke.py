@@ -9,22 +9,32 @@ non-zero without printing a result:
   1. device  — require CUDA (no fallback); print the card's name and power
                limit as nvidia-smi reports them.
   2. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``.
-  3. data    — GMRQB, 10 M records x 19 attributes (seed 0), padded to
-               (24, 10,000,384) float32 on the card; the engine under test and
-               a second engine running the plain PyTorch versions
-               (``backend="torch"``) on the same card.
-  4. kernels — each hand kernel against its plain version at the main path's
-               shapes (Q = 1 and Q = 128): masks exactly equal, aggregates
-               within float32 summation tolerance, repeated sums bit-identical;
-               CUDA-event times of the kernel, its plain version and, where one
-               exists, the one-call PyTorch equivalent.
+  3. data    — GMRQB, 10 M records x 19 attributes (seed 0); the engine under
+               test and a second engine running the plain PyTorch versions
+               (``backend="torch"``) on the same card, each with the
+               reference's four structures: the columnar scan, the kd-tree,
+               the STR R*-tree and the VA-file, each padded to
+               (24, 10,000,384) float32 on the card (the trees permuted), plus
+               the VA-file's packed codes. Each build's time is printed.
+  4. kernels — each hand kernel against its plain version at the main paths'
+               shapes (Q = 1 and Q = 128; the visit kernel at the visit list
+               the kd-tree prunes the 128-query workload to): masks exactly
+               equal, aggregates within float32 summation tolerance, repeated
+               sums bit-identical; CUDA-event times of the kernel, its plain
+               version and, where one exists, the one-call PyTorch equivalent.
   5. slice   — the main path: ``MDRQEngine.query_batch(method="auto")`` on the
                GMRQB mixed workload at B in {1, 8, 32, 128} under Ids, Count,
                Mask, two TopK and three Agg specs, plus ``engine.query`` singles.
                Every result equals the plain-backend engine's; a sample equals
-               the numpy oracle; each bucket costs exactly one fused launch and
-               one host sync; every kernel of the path was launched.
-  6. server  — ``MDRQServer(max_batch=64).serve_all`` on 256 queries under
+               the numpy oracle; each bucket costs its path's budget (a scan
+               bucket 1 fused launch + 1 host sync, a two-phase bucket 1 prune
+               or filter + 1 fused visit launch + 2 host syncs); every kernel
+               of the scan path was launched.
+  6. index   — the two-phase paths: ``query_batch(method=m)`` for m in kdtree,
+               rstar, vafile at B in {8, 128} under the same eight specs, and
+               ``engine.query`` singles (ids and Count) on each. The same
+               checks, and every visit and VA-filter kernel was launched.
+  7. server  — ``MDRQServer(max_batch=64).serve_all`` on 256 queries under
                Count, against ``query_batch``.
 
 The last three lines are the kernel table (JSON), the nvidia-smi line, and
@@ -49,6 +59,9 @@ N = 10_000_000
 SEED = 0
 TILE_N = 1024
 BATCH_SIZES = (1, 8, 32, 128)
+INDEX_METHODS = ("kdtree", "rstar", "vafile")
+INDEX_BATCH_SIZES = (8, 128)
+TIMED_CALLS = 3           # warm query_batch calls per qps cell; median kept
 ORACLE_SAMPLE = 16        # queries per (B, spec) checked against numpy
 N_SINGLES = 8             # engine.query singles on the main path
 SERVER_QUERIES = 256
@@ -57,7 +70,9 @@ TIMING_REPS = 10
 # pairwise) over non-negative values: relative difference bound.
 AGG_SUM_RTOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 rate outside
-# the tensor cores, for the bound column.
+# the tensor cores, for the bound column. The VA filter's integer operations
+# are counted against the float32 rate too (the data sheet states no int32
+# rate outside the tensor cores).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
@@ -117,6 +132,61 @@ def same_result(spec, a, b) -> bool:
         if spec.op == "sum":
             return abs(a - b) <= AGG_SUM_RTOL * abs(b)
     return a == b
+
+
+def expected_counts(eng, buckets) -> dict[str, int]:
+    """The budget of one ``query_batch`` over these buckets, as
+    ``ops.counters()`` reports it: a scan bucket is 1 fused launch + 1 host
+    sync; a two-phase bucket is 1 prune (filter) + its survivors' sync, then
+    1 fused visit launch + its payload's sync — unless nothing survived,
+    when the visit launch and its sync are skipped."""
+    scan_ops = {"scan": "multi_scan_reduce",
+                "scan_vertical": "multi_scan_vertical_reduce"}
+    want: dict[str, int] = {}
+
+    def add(name):
+        want[name] = want.get(name, 0) + 1
+    for meth in buckets:
+        add("host_sync")
+        if meth in scan_ops:
+            add(scan_ops[meth])
+            continue
+        add("multi_va_filter" if meth == "vafile" else "prune_hierarchy_batch")
+        if getattr(eng, meth).last_visited_blocks:
+            add("multi_visit_reduce")
+            add("host_sync")
+    return want
+
+
+class Oracle:
+    """Numpy ground truth: matching ids per query (cached), and each spec's
+    result from them. On the trees, TopK orders equal values by leaf-order
+    position (``inv_perm[id]``), as the reference does; elsewhere by id."""
+
+    def __init__(self, eng, ds, queries):
+        self.cols, self.queries = ds.cols, queries
+        self._ids: dict[int, np.ndarray] = {}
+        self._inv = {}
+        for name in ("kdtree", "rstar"):
+            perm = getattr(eng, name).perm
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(perm.size)
+            self._inv[name] = inv
+
+    def ids(self, i: int) -> np.ndarray:
+        from repro_torch.core import match_ids_np
+        if i not in self._ids:
+            self._ids[i] = match_ids_np(self.cols, self.queries[i])
+        return self._ids[i]
+
+    def result(self, spec, i: int, method: str):
+        ids = self.ids(i)
+        if spec.kind == "topk" and method in self._inv:
+            vals = self.cols[spec.dim, ids]
+            order = np.lexsort((self._inv[method][ids],
+                                -vals if spec.largest else vals))
+            return ids[order[: spec.k]].astype(np.int64)
+        return spec.from_ids(ids, self.cols)
 
 
 def kernel_phase(eng, queries):
@@ -260,67 +330,207 @@ def kernel_phase(eng, queries):
         time_ms(lambda: ref.range_scan_ref(data[d], plo[d, 0], pup[d, 0])),
         dims.numel() * n_pad * 4 + n_pad + dims.numel() * 12,
         2.0 * dims.numel() * n_pad, None)
+    visit_rows(eng, full, queries, row)
     return rows
 
 
-def slice_phase(eng, eng_plain, ds, queries):
-    """The main path, checked against the plain engine and numpy."""
-    from repro_torch.core import Agg, Count, Ids, Mask, TopK, match_ids_np
+def visit_rows(eng, full, queries, row):
+    """Kernels 7-10: the visit kernel at the kd-tree's visit list for the
+    128-query workload (and one query's), the VA filter at Q = 128 and 1."""
+    from repro_torch.core import blockindex
+    from repro_torch.core.types import next_pow2
+    from repro_torch.kernels import multi_scan, range_scan, ref, va_filter
+
+    kd = eng.kdtree
+    data = kd.data_dev
+    m_pad, n_pad = data.shape
+    dev = data.device
+    blocks = range_scan.blocks_view(data, TILE_N)
+    q_n = len(full)
+    qlo, qhi = (torch.as_tensor(a, device=dev)
+                for a in full.bounds_columnar(kd.m, q_n))
+    leaf = blockindex.prune_hierarchy_batch(kd.levels_lo, kd.levels_hi, qlo,
+                                            qhi, fanout=kd.fanout)
+    qids_np, bids_np = np.nonzero(leaf.cpu().numpy())
+    real_v = int(qids_np.size)
+    qids_p, bids_p = blockindex._pad_visit_list(qids_np.astype(np.int32),
+                                                bids_np.astype(np.int32))
+    qids = torch.as_tensor(qids_p, device=dev)
+    bids = torch.as_tensor(bids_p, device=dev)
+    lo, up = (torch.as_tensor(a, device=dev)
+              for a in full.bounds_columnar(m_pad, q_n, np.float32))
+    n_vis = qids.numel()
+    distinct = int(np.unique(bids_np).size)
+    print(f"  kdtree visits for Q={q_n}: {real_v} (padded {n_vis}), "
+          f"{distinct} distinct of {n_pad // TILE_N} blocks", flush=True)
+    got = multi_scan.multi_scan_visit(data, qids, bids, lo, up, tile_n=TILE_N)
+    check(torch.equal(got, ref.multi_scan_blocks_ref(blocks, qids, bids, lo, up)),
+          f"multi_scan_visit V={n_vis} != plain")
+    del got
+    # bound: each distinct visited block read once, the whole padded output
+    # written once; two compares per element of the real visits
+    row("multi_scan_visit", "src/repro_torch/kernels/csrc/visit.cu",
+        "src/repro/kernels/multi_scan.py:206", 0.0,
+        time_ms(lambda: multi_scan.multi_scan_visit(data, qids, bids, lo, up,
+                                                    tile_n=TILE_N)),
+        time_ms(lambda: ref.multi_scan_blocks_ref(blocks, qids, bids, lo, up)),
+        distinct * m_pad * TILE_N * 4 + n_vis * TILE_N + n_vis * 8
+        + 2 * m_pad * q_n * 4,
+        2.0 * m_pad * TILE_N * real_v, None)
+
+    # -- range_scan_visit: Q = 1, the kd-tree's survivors of one query --
+    q0 = queries[0]
+    b1 = np.nonzero(leaf[0].cpu().numpy())[0].astype(np.int32)
+    ids1 = np.full((next_pow2(b1.size),), -1, np.int32)
+    ids1[: b1.size] = b1
+    ids1 = torch.as_tensor(ids1, device=dev)
+    lo1, up1 = lo[:, :1].contiguous(), up[:, :1].contiguous()
+    zeros = torch.zeros_like(ids1)
+    got = range_scan.range_scan_visit(data, ids1, lo1, up1, tile_n=TILE_N)
+    check(torch.equal(got, ref.multi_scan_blocks_ref(blocks, zeros, ids1, lo1,
+                                                     up1)),
+          "range_scan_visit != plain")
+    print(f"  kdtree visits for query 0 ({q0.n_queried_dims} dims): {b1.size} "
+          f"(padded {ids1.numel()})", flush=True)
+    row("range_scan_visit", "src/repro_torch/kernels/csrc/visit.cu",
+        "src/repro/kernels/range_scan.py:248", 0.0,
+        time_ms(lambda: range_scan.range_scan_visit(data, ids1, lo1, up1,
+                                                    tile_n=TILE_N)),
+        time_ms(lambda: ref.multi_scan_blocks_ref(blocks, zeros, ids1, lo1,
+                                                  up1)),
+        b1.size * m_pad * TILE_N * 4 + ids1.numel() * (TILE_N + 4)
+        + 2 * m_pad * 4,
+        2.0 * m_pad * TILE_N * b1.size, None)
+
+    # -- multi_va_filter_packed: Q = 128; va_filter_packed: Q = 1 --
+    va = eng.vafile
+    packed = va.packed_dev
+    w = packed.shape[0]
+    clo, chi = (torch.as_tensor(a, device=dev)
+                for a in va.query_cells_batch(full, q_n))
+    got = va_filter.multi_va_filter_packed(packed, clo, chi, va.m)
+    check(torch.equal(got, ref.multi_va_filter_packed_ref(packed, clo, chi, va.m)),
+          f"multi_va_filter_packed Q={q_n} != plain")
+    print(f"  VA candidates at Q={q_n}: {float(got.float().mean()):.4f} of "
+          f"objects; {w} packed words", flush=True)
+    del got
+    row("multi_va_filter_packed", "src/repro_torch/kernels/csrc/va_filter.cu",
+        "src/repro/kernels/va_filter.py:144", 0.0,
+        time_ms(lambda: va_filter.multi_va_filter_packed(packed, clo, chi, va.m)),
+        time_ms(lambda: ref.multi_va_filter_packed_ref(packed, clo, chi, va.m)),
+        w * n_pad * 4 + q_n * n_pad + 2 * clo.numel() * 4,
+        4.0 * q_n * n_pad * va.m, None)
+    c1, h1 = clo[:, :1].contiguous(), chi[:, :1].contiguous()
+    got = va_filter.va_filter_packed(packed, c1, h1, va.m)
+    check(torch.equal(got, ref.va_filter_packed_ref(packed, c1[:, 0], h1[:, 0],
+                                                    va.m)),
+          "va_filter_packed != plain")
+    row("va_filter_packed", "src/repro_torch/kernels/csrc/va_filter.cu",
+        "src/repro/kernels/va_filter.py:97", 0.0,
+        time_ms(lambda: va_filter.va_filter_packed(packed, c1, h1, va.m)),
+        time_ms(lambda: ref.va_filter_packed_ref(packed, c1[:, 0], h1[:, 0],
+                                                 va.m)),
+        w * n_pad * 4 + n_pad + 2 * c1.numel() * 4, 4.0 * n_pad * va.m, None)
+
+
+def result_specs() -> tuple:
+    """The eight result specs every query phase runs under."""
+    from repro_torch.core import Agg, Count, Ids, Mask, TopK
+    return (Ids(), Count(), Mask(), TopK(k=10, dim=3),
+            TopK(k=10, dim=4, largest=False), Agg("sum", 3), Agg("min", 2),
+            Agg("max", 18))
+
+
+def run_checked(eng, eng_plain, oracle, qs, method, spec, label):
+    """One ``query_batch`` under the counters, held against its budget, the
+    plain engine and a numpy sample -> (results, method_counts)."""
     from repro_torch.kernels import ops
+    ops.reset_counters()
+    got = eng.query_batch(qs, method=method, spec=spec)
+    counts = ops.counters()
+    stats = eng.last_batch_stats
+    want_counts = expected_counts(eng, stats.method_counts)
+    check(counts == want_counts,
+          f"{label}: counters {counts} != {want_counts}")
+    plain = eng_plain.query_batch(qs, method=method, spec=spec)
+    check(eng_plain.last_batch_stats.methods == stats.methods,
+          f"{label}: plans differ from the plain engine's")
+    for k, (x, y) in enumerate(zip(got, plain)):
+        check(same_result(spec, x, y),
+              f"{label} query {k}: kernel {x!r} != plain {y!r}")
+    for k in range(min(len(qs), ORACLE_SAMPLE)):
+        want = oracle.result(spec, k, stats.methods[k])
+        check(same_result(spec, got[k], want),
+              f"{label} query {k}: {got[k]!r} != oracle {want!r}")
+    return got, dict(stats.method_counts)
 
-    specs = (Ids(), Count(), Mask(), TopK(k=10, dim=3),
-             TopK(k=10, dim=4, largest=False), Agg("sum", 3), Agg("min", 2),
-             Agg("max", 18))
-    oracle: dict[int, np.ndarray] = {}
 
-    def oracle_ids(i):
-        if i not in oracle:
-            oracle[i] = match_ids_np(ds.cols, queries[i])
-        return oracle[i]
+def warm_qps(eng, qs, method, spec) -> float:
+    """Queries per second of ``query_batch``: the median of ``TIMED_CALLS``
+    warm calls, host clock (the call ends in its host sync)."""
+    times = []
+    for _ in range(TIMED_CALLS):
+        t0 = time.perf_counter()
+        eng.query_batch(qs, method=method, spec=spec)
+        times.append(time.perf_counter() - t0)
+    return len(qs) / float(np.median(times))
 
-    bucket_op = {"scan": "multi_scan_reduce",
-                 "scan_vertical": "multi_scan_vertical_reduce"}
+
+def slice_phase(eng, eng_plain, oracle, queries):
+    """The main path, checked against the plain engine and numpy; warm qps
+    as in ``warm_qps``."""
+    from repro_torch.core import Count
+
     topk_peak = None
     for b in BATCH_SIZES:
         qs = queries[:b]
-        for spec in specs:
+        for spec in result_specs():
             if b == 128 and spec.kind == "topk":
                 torch.cuda.reset_peak_memory_stats()
-            ops.reset_counters()
-            got = eng.query_batch(qs, method="auto", spec=spec)
-            counts = ops.counters()
-            buckets = eng.last_batch_stats.method_counts
-            want_counts = {bucket_op[m]: 1 for m in buckets}
-            want_counts["host_sync"] = len(buckets)
-            check(counts == want_counts,
-                  f"B={b} {spec}: counters {counts} != {want_counts}")
+            _, buckets = run_checked(eng, eng_plain, oracle, qs, "auto", spec,
+                                     f"auto B={b} {spec}")
             if b == 128 and spec.kind == "topk":
                 topk_peak = max(topk_peak or 0, torch.cuda.max_memory_allocated())
-            plain = eng_plain.query_batch(qs, method="auto", spec=spec)
-            for k, (x, y) in enumerate(zip(got, plain)):
-                check(same_result(spec, x, y),
-                      f"B={b} {spec} query {k}: kernel {x!r} != plain {y!r}")
-            for k in range(min(b, ORACLE_SAMPLE)):
-                want = spec.from_ids(oracle_ids(k), ds.cols)
-                check(same_result(spec, got[k], want),
-                      f"B={b} {spec} query {k}: {got[k]!r} != oracle {want!r}")
-            t0 = time.perf_counter()
-            eng.query_batch(qs, method="auto", spec=spec)
-            dt = time.perf_counter() - t0
-            print(f"  B={b:<3} {str(spec):<38} warm qps={b / dt:10.1f} "
-                  f"methods={buckets}", flush=True)
+            qps = warm_qps(eng, qs, "auto", spec)
+            print(f"  B={b:<3} {str(spec):<38} warm qps={qps:10.1f} "
+                  f"method_counts={buckets}", flush=True)
 
-    for i in range(N_SINGLES):
+    # Singles: planned, and on the scans by name (their single-query
+    # kernels; "auto" may send a single to a two-phase path).
+    k = next(k for k, q in enumerate(queries) if q.is_complete_match)
+    for i in (*range(N_SINGLES), k):
         q = queries[i]
-        want = oracle_ids(i)
-        check(np.array_equal(eng.query(q), want), f"single {i}: ids != oracle")
-        check(eng.query(q, spec=Count()) == want.size,
-              f"single {i}: count != oracle")
-    complete = next(q for q in queries if q.is_complete_match)
-    check(np.array_equal(eng.query(complete),
-                         match_ids_np(ds.cols, complete)),
-          "single complete-match query != oracle")
+        want = oracle.ids(i)
+        for method in ("auto", "scan") + (
+                () if q.is_complete_match else ("scan_vertical",)):
+            check(np.array_equal(eng.query(q, method=method), want),
+                  f"single {i} {method}: ids != oracle")
+            check(eng.query(q, method=method, spec=Count()) == want.size,
+                  f"single {i} {method}: count != oracle")
     return topk_peak
+
+
+def index_phase(eng, eng_plain, oracle, queries):
+    """The two-phase paths by name, checked like the main path; warm qps as
+    in ``warm_qps``."""
+    from repro_torch.core import Count
+
+    for method in INDEX_METHODS:
+        for b in INDEX_BATCH_SIZES:
+            qs = queries[:b]
+            for spec in result_specs():
+                run_checked(eng, eng_plain, oracle, qs, method, spec,
+                            f"{method} B={b} {spec}")
+                visits = getattr(eng, method).last_visited_blocks
+                qps = warm_qps(eng, qs, method, spec)
+                print(f"  {method:<6} B={b:<3} {str(spec):<38} warm qps="
+                      f"{qps:10.1f} visits={visits}", flush=True)
+        for i in range(N_SINGLES):
+            want = oracle.ids(i)
+            check(np.array_equal(eng.query(queries[i], method=method), want),
+                  f"{method} single {i}: ids != oracle")
+            check(eng.query(queries[i], method=method, spec=Count())
+                  == want.size, f"{method} single {i}: count != oracle")
 
 
 def server_phase(eng, ds):
@@ -365,26 +575,47 @@ def main() -> int:
 
     with phase("data"):
         ds = gmrqb.build(N, seed=SEED)
-        eng = MDRQEngine(ds, structures=("scan",), tile_n=TILE_N)
-        eng_plain = MDRQEngine(ds, structures=("scan",), tile_n=TILE_N,
-                               backend="torch")
+        eng = MDRQEngine(ds, tile_n=TILE_N)
+        eng_plain = MDRQEngine(ds, tile_n=TILE_N, backend="torch")
         queries = [q for _, q in gmrqb.mixed_workload(ds, 128, seed=SEED)]
+        oracle = Oracle(eng, ds, queries)
         print(f"  GMRQB n={ds.n} m={ds.m}; device array "
-              f"{tuple(eng.columnar.data_dev.shape)} float32", flush=True)
+              f"{tuple(eng.columnar.data_dev.shape)} float32 per structure; "
+              f"packed VA codes {tuple(eng.vafile.packed_dev.shape)} int32",
+              flush=True)
+        for name, e in (("engine", eng), ("plain engine", eng_plain)):
+            print(f"  {name} build seconds: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in e.build_seconds.items()), flush=True)
+        print(f"  device memory allocated: "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
 
     with phase("kernels"):
         rows = kernel_phase(eng, queries)
 
-    with phase("slice"):
-        ops.reset_kernel_launches()
-        topk_peak = slice_phase(eng, eng_plain, ds, queries)
+    # The kernels of each path, counted over that path's phase alone.
+    scan_kernels = [r for r in rows if r["name"] in (
+        "multi_scan_tiles", "multi_scan_vertical", "masked_fill_tiles",
+        "masked_agg_tiles", "range_scan_tiles", "range_scan_vertical")]
+    index_kernels = [r for r in rows if r not in scan_kernels]
+
+    def read_launches(kernels, path):
         launches = ops.kernel_launches()
-        print(f"  kernel launches on the main path: {launches}")
-        print(f"  TopK B=128 peak device memory: {topk_peak / 1e9:.2f} GB")
-        for r in rows:
+        print(f"  kernel launches on the {path}: {launches}")
+        for r in kernels:
             r["launches"] = launches.get(r["name"], 0)
             check(r["launches"] > 0,
-                  f"kernel {r['name']} was not launched on the main path")
+                  f"kernel {r['name']} was not launched on the {path}")
+
+    with phase("slice"):
+        ops.reset_kernel_launches()
+        topk_peak = slice_phase(eng, eng_plain, oracle, queries)
+        read_launches(scan_kernels, "main path")
+        print(f"  TopK B=128 peak device memory: {topk_peak / 1e9:.2f} GB")
+
+    with phase("index"):
+        ops.reset_kernel_launches()
+        index_phase(eng, eng_plain, oracle, queries)
+        read_launches(index_kernels, "two-phase paths")
 
     with phase("server"):
         server_phase(eng, ds)

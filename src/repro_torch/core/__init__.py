@@ -1,8 +1,10 @@
-"""repro_torch.core — the MDRQ engine's scan slice, in PyTorch.
+"""repro_torch.core — the MDRQ engine on a frozen dataset, in PyTorch.
 
 Public API:
   * types: ``RangeQuery``, ``QueryBatch``, ``Dataset`` + numpy oracles
   * result specs: ``Ids``, ``Count``, ``Mask``, ``TopK``, ``Agg``
+  * structures: ``build_columnar_scan``, ``build_kdtree``, ``build_rstar``,
+    ``build_vafile`` (``BlockedIndex``, ``VAFile``)
   * engine: ``MDRQEngine`` (the access-path registry), ``engine_from_arrays``
   * access-path layer: ``AccessPath`` protocol + adapters (``core.paths``)
   * planning: ``Planner``, ``Histograms``, ``CostModel``, ``BatchPlan``
@@ -12,8 +14,13 @@ from repro_torch.core.types import (Agg, Count, Dataset, Ids, Mask,
                                     match_ids_np, match_mask_np,
                                     register_result_spec, resolve_spec)
 from repro_torch.core.engine import BatchStats, MDRQEngine, PendingBatch
-from repro_torch.core.paths import AccessPath, PerQueryPath, PlanInputs
+from repro_torch.core.paths import (AccessPath, BlockedIndexPath,
+                                    PerQueryPath, PlanInputs, VAFilePath)
 from repro_torch.core.scan import build_columnar_scan
+from repro_torch.core.blockindex import BlockedIndex
+from repro_torch.core.kdtree import build_kdtree
+from repro_torch.core.rstar import build_rstar
+from repro_torch.core.vafile import VAFile, build_vafile
 from repro_torch.core.planner import (BatchPlan, CalibrationFit,
                                       CalibrationReport, CostModel,
                                       Histograms, Planner)
@@ -24,7 +31,9 @@ __all__ = [
     "resolve_spec", "ResultSpec", "Ids", "Count", "Mask", "TopK", "Agg",
     "register_result_spec",
     "MDRQEngine", "BatchStats", "PendingBatch", "engine_from_arrays",
-    "AccessPath", "PerQueryPath", "PlanInputs", "build_columnar_scan",
+    "AccessPath", "PerQueryPath", "PlanInputs", "BlockedIndexPath",
+    "VAFilePath", "build_columnar_scan", "build_kdtree", "build_rstar",
+    "build_vafile", "BlockedIndex", "VAFile",
     "BatchPlan", "CalibrationFit", "CalibrationReport", "CostModel",
     "Histograms", "Planner",
 ]

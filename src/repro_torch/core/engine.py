@@ -1,10 +1,12 @@
 """MDRQEngine — a registry of access paths behind one query interface.
 
-Ports ``repro/core/engine.py`` for the scan slice. The engine places a
-columnar dataset on one device, wraps the columnar scan in its two
-``core.paths`` adapters (``scan`` and ``scan_vertical``), and answers range
-queries either with an explicitly named path or through the planner
-("auto").
+Ports ``repro/core/engine.py`` for a frozen dataset on one device. The
+engine places a columnar dataset on the device, builds the structures it is
+asked for — by default the reference's four: the columnar scan (served as
+``scan`` and ``scan_vertical``), the blocked kd-tree, the packed STR R*-tree
+and the VA-file — registers each behind its ``core.paths`` adapter, and
+answers range queries either with an explicitly named path or through the
+planner ("auto").
 
 Batched execution: ``query_batch`` takes a whole stream of queries at once.
 The planner's vectorized fixpoint (``Planner.plan_batch``) assigns every
@@ -32,15 +34,15 @@ from repro_torch.kernels import ops
 from repro_torch.core import types as T
 from repro_torch.core import scan as scan_mod
 from repro_torch.core import paths as paths_mod
+from repro_torch.core.kdtree import build_kdtree
 from repro_torch.core.planner import CostModel, Histograms, Planner
+from repro_torch.core.rstar import build_rstar
+from repro_torch.core.vafile import build_vafile
 
-# The structures this slice builds, and the slice of the port that brings
-# each of the others.
-STRUCTURES = ("scan",)
+# The structures the port builds (the reference's default set), and the
+# slice of the port that brings each of the others.
+STRUCTURES = ("scan", "kdtree", "rstar", "vafile")
 LATER_STRUCTURES = {
-    "kdtree": "slice 2 (the two-phase index paths)",
-    "rstar": "slice 2 (the two-phase index paths)",
-    "vafile": "slice 2 (the two-phase index paths)",
     "rowscan": "a later slice, with the row-major scan kernel",
 }
 
@@ -168,12 +170,36 @@ class MDRQEngine:
         self.dataset = dataset
         self.tile_n = tile_n
         self.device = resolve_device(device)
-        self.columnar = scan_mod.build_columnar_scan(
-            dataset, tile_n=tile_n, device=self.device, backend=backend)
+        # host seconds of each structure's build (numpy, then the copy to
+        # the device), for the build report
+        self.build_seconds: dict[str, float] = {}
+
+        def build(name, fn, **placement):
+            if name not in structures and name != "scan":
+                return None
+            t0 = time.perf_counter()
+            out = fn(dataset, tile_n=tile_n, backend=backend, **placement)
+            self.build_seconds[name] = time.perf_counter() - t0
+            return out
+
+        self.columnar = build("scan", scan_mod.build_columnar_scan,
+                              device=self.device)
+        self.kdtree = build("kdtree", build_kdtree, device=self.device)
+        self.rstar = build("rstar", build_rstar, device=self.device)
+        # The VA-file refines in storage order: it shares the scan's copy.
+        self.vafile = build("vafile", build_vafile,
+                            data_dev=self.columnar.data_dev)
         self.hist = Histograms.build(dataset)
+        # Every built structure registers as a plannable path, or "auto"
+        # could never choose it.
         self.paths: dict[str, paths_mod.AccessPath] = {}
         self.register_path(paths_mod.ColumnarScanPath(self.columnar))
         self.register_path(paths_mod.VerticalScanPath(lambda: self.columnar))
+        for index in (self.kdtree, self.rstar):
+            if index is not None:
+                self.register_path(paths_mod.BlockedIndexPath(index))
+        if self.vafile is not None:
+            self.register_path(paths_mod.VAFilePath(self.vafile, self.hist))
         # The planner shares the registry dict: paths registered later are
         # planned without rebuilding anything.
         self.planner = Planner(
@@ -239,11 +265,13 @@ class MDRQEngine:
     ) -> PendingBatch:
         """Device stage of a split ``query_batch`` -> a ``PendingBatch``.
 
-        Plans the batch and issues every bucket's fused launch without
-        synchronizing; ``PendingBatch.finalize()`` performs the deferred host
-        syncs + spec finalizers (one counted ``device_get`` per bucket — the
-        same budget as the synchronous path). Buckets whose path lacks the
-        split protocol execute synchronously inside this call.
+        Plans the batch and issues every bucket's fused launch;
+        ``PendingBatch.finalize()`` performs the deferred host syncs + spec
+        finalizers (one counted ``device_get`` per bucket — the same budget
+        as the synchronous path). Scan buckets synchronize nothing here; a
+        two-phase bucket pays its one shape-deciding sync (the prune's or the
+        filter's survivors) here, before its visit launch. Buckets whose path
+        lacks the split protocol execute synchronously inside this call.
         """
         spec = T.resolve_spec(spec)
         batch = _as_batch(queries)

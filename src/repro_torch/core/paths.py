@@ -1,16 +1,16 @@
 """The access-path layer: one protocol behind every MDRQ execution engine.
 
-Ports ``repro/core/paths.py`` for the scan slice: ``AccessPath`` is the
-protocol every path speaks, ``ColumnarScanPath`` and ``VerticalScanPath`` put
-the columnar scan behind it, ``PerQueryPath`` adapts anything that only has
-single-query methods, and ``MDRQEngine`` is a name -> path registry.
+Ports ``repro/core/paths.py``: ``AccessPath`` is the protocol every path
+speaks, ``ColumnarScanPath`` and ``VerticalScanPath`` put the columnar scan
+behind it, ``BlockedIndexPath`` the kd-tree and the R*-tree, ``VAFilePath``
+the VA-file, ``PerQueryPath`` adapts anything that only has single-query
+methods, and ``MDRQEngine`` is a name -> path registry.
 
 Planning rides the same protocol: each path prices itself, scalar (``cost``,
 the single-query ``Planner.explain`` hook) and vectorized (``cost_batch``,
 the (paths x Q) matrix ``Planner.plan_batch`` builds from one ``PlanInputs``
 pass). The four cost mixins delegate to ``CostModel`` so the paths and the
-planner's structure-free planning stubs share one set of formulas (the tree
-and VA-file mixins price paths whose structures arrive in a later slice).
+planner's structure-free planning stubs share one set of formulas.
 
 Conventions:
 
@@ -252,6 +252,75 @@ class VerticalScanPath(VerticalScanCost):
         with _path_span(self, batch, spec, stage="launch"):
             return self._scan_ref().launch_batch(batch, partial=True,
                                                  spec=spec)
+
+
+# -- adapters over the two-phase indexes --------------------------------------
+
+class BlockedIndexPath(TreeCost):
+    """A ``BlockedIndex`` (kd-tree or packed STR R*-tree) as a path."""
+
+    plannable = True
+    owns_storage = True
+
+    def __init__(self, index):
+        self._index = index
+        self.name = index.name
+
+    @property
+    def nbytes_index(self) -> int:
+        return self._index.nbytes_index
+
+    def query(self, q: T.RangeQuery) -> np.ndarray:
+        return self._index.query(q)
+
+    def count(self, q: T.RangeQuery) -> int:
+        return self._index.count(q)
+
+    def query_batch(self, batch: T.QueryBatch,
+                    spec: T.ResultSpec = T.IDS) -> Results:
+        with _path_span(self, batch, spec) as sp:
+            out = self._index.query_batch(batch, spec=spec)
+            sp.block_on(out)
+        return out
+
+    def launch_batch(self, batch: T.QueryBatch,
+                     spec: T.ResultSpec = T.IDS) -> tuple:
+        with _path_span(self, batch, spec, stage="launch"):
+            return self._index.launch_batch(batch, spec=spec)
+
+
+class VAFilePath(VAFileCost):
+    """A ``VAFile`` as a path (two-phase approximation scan)."""
+
+    name = "vafile"
+    plannable = True
+    owns_storage = True
+
+    def __init__(self, vafile, hist):
+        self._vafile = vafile
+        self.hist = hist
+
+    @property
+    def nbytes_index(self) -> int:
+        return self._vafile.nbytes_index
+
+    def query(self, q: T.RangeQuery) -> np.ndarray:
+        return self._vafile.query(q)
+
+    def count(self, q: T.RangeQuery) -> int:
+        return self._vafile.count(q)
+
+    def query_batch(self, batch: T.QueryBatch,
+                    spec: T.ResultSpec = T.IDS) -> Results:
+        with _path_span(self, batch, spec) as sp:
+            out = self._vafile.query_batch(batch, spec=spec)
+            sp.block_on(out)
+        return out
+
+    def launch_batch(self, batch: T.QueryBatch,
+                     spec: T.ResultSpec = T.IDS) -> tuple:
+        with _path_span(self, batch, spec, stage="launch"):
+            return self._vafile.launch_batch(batch, spec=spec)
 
 
 class PerQueryPath:

@@ -61,12 +61,12 @@ import numpy as np
 from repro_torch.core import types as T
 from repro_torch.core import paths as paths_mod
 
-# The VA-file's cell resolution and packing density (2-bit cell codes, 16
-# per int32 word): the planning slack (2/CELLS per dim) and the approximation
-# bytes (ceil(m / DIMS_PER_WORD) words). Copies of the reference's build and
-# kernel constants; the VA-file slice makes its build read them from here.
-VA_CELLS = 4
-VA_DIMS_PER_WORD = 16
+# The VA-file's cell resolution and packing density: the planning slack
+# (2/CELLS per dim) and the approximation bytes (ceil(m / DIMS_PER_WORD)
+# words) derive from the same constants the build and the kernel use, so a
+# cell-resolution change can never silently skew the plan vs the execution.
+from repro_torch.core.vafile import CELLS as VA_CELLS
+from repro_torch.kernels.va_filter import DIMS_PER_WORD as VA_DIMS_PER_WORD
 
 # Machine-constant defaults of ``CostModel`` — UNCALIBRATED PLACEHOLDERS in
 # the reference's TPU v5e roofline units (seconds), carried over unchanged so

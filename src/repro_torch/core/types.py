@@ -62,6 +62,10 @@ class ResultSpec:
     """
 
     kind: ClassVar[str] = "abstract"
+    # True when ``reduce_visits`` consumes the host-built (Q, M) visit-index
+    # table; everyone else gets a (1, 1) placeholder, so the two-phase paths
+    # skip building and shipping it.
+    needs_visit_index: ClassVar[bool] = False
 
     @property
     def value_dim(self) -> Optional[int]:
@@ -81,10 +85,24 @@ class ResultSpec:
         """(q_pad, n_pad) match masks -> device payload (identity here)."""
         return masks
 
-    # -- host finalizer -------------------------------------------------------
+    def reduce_visits(self, masks: torch.Tensor, data_cm: torch.Tensor, qids,
+                      bids, valid, visit_index, *, tile_n: int, n_queries: int,
+                      backend: str):
+        """(V_pad, tile_n) two-phase visit masks -> device payload."""
+        return masks
+
+    # -- host finalizers ------------------------------------------------------
     def finalize(self, payload, q_n: int, n: int) -> list:
-        """Host payload -> one result per query."""
+        """Host payload from the mask-shaped routes -> one result per query."""
         raise NotImplementedError
+
+    def finalize_visits(self, payload, vctx: "VisitHostCtx") -> list:
+        """Host payload from the visit-shaped route -> one result per query.
+
+        Defaults to ``finalize`` — right whenever the visit reducer produced
+        the mask reducer's payload shape (Count, Agg).
+        """
+        return self.finalize(payload, vctx.n_queries, vctx.n)
 
     def from_ids(self, ids: np.ndarray, cols: np.ndarray):
         """Host fallback from a materialized id set (``PerQueryPath`` rung)."""
@@ -119,6 +137,12 @@ class Ids(ResultSpec):
         return [np.nonzero(payload[k, :n])[0].astype(np.int64)
                 for k in range(q_n)]
 
+    def finalize_visits(self, payload, vctx):
+        from repro_torch.core import blockindex  # runtime: no import cycle
+        return blockindex.scatter_visit_results(
+            payload[: vctx.qids.size], vctx.qids, vctx.bids, vctx.n_queries,
+            vctx.tile_n, vctx.n, vctx.perm)
+
     def from_ids(self, ids, cols):
         return ids
 
@@ -142,6 +166,17 @@ class Mask(ResultSpec):
 
     def finalize(self, payload, q_n, n):
         return [np.asarray(payload[k, :n]) > 0 for k in range(q_n)]
+
+    def finalize_visits(self, payload, vctx):
+        from repro_torch.core import blockindex
+        out = []
+        for ids in blockindex.scatter_visit_results(
+                payload[: vctx.qids.size], vctx.qids, vctx.bids,
+                vctx.n_queries, vctx.tile_n, vctx.n, vctx.perm):
+            m = np.zeros((vctx.n,), bool)
+            m[ids] = True
+            out.append(m)
+        return out
 
     def from_ids(self, ids, cols):
         m = np.zeros((cols.shape[1],), bool)
@@ -168,6 +203,11 @@ class Count(ResultSpec):
     def device_reduce(self, masks, data_cm, *, tile_n, backend):
         return masks.ne(0).sum(dim=-1, dtype=torch.int32)
 
+    def reduce_visits(self, masks, data_cm, qids, bids, valid, visit_index,
+                      *, tile_n, n_queries, backend):
+        from repro_torch.kernels import reducers
+        return reducers.visit_mask_counts(masks, qids, valid, n_queries)
+
     def finalize(self, payload, q_n, n):
         return [int(c) for c in np.asarray(payload)[:q_n]]
 
@@ -192,11 +232,13 @@ class TopK(ResultSpec):
     The reducer fills non-matching lanes with the identity, selects the k
     extremes on device, and ships only (k values, k positions, 1 count) per
     query; the finalizer truncates to the true match count. Ties order by
-    ascending id, exactly as the reference's device ``top_k`` and the numpy
-    fallback do.
+    ascending position, exactly as the reference's device ``top_k`` does:
+    by id on the scans, by permuted (leaf-order) position on the trees,
+    whose finalizer then maps positions through the permutation.
     """
 
     kind: ClassVar[str] = "topk"
+    needs_visit_index: ClassVar[bool] = True
     k: int = 1
     dim: int = 0
     largest: bool = True
@@ -215,12 +257,30 @@ class TopK(ResultSpec):
                                     self.largest, tile_n=tile_n,
                                     backend=backend)
 
+    def reduce_visits(self, masks, data_cm, qids, bids, valid, visit_index,
+                      *, tile_n, n_queries, backend):
+        from repro_torch.kernels import reducers
+        vals, pos = reducers.visit_topk(masks, data_cm, self.dim, bids, valid,
+                                        visit_index, self.k, self.largest,
+                                        tile_n)
+        counts = reducers.visit_mask_counts(masks, qids, valid, n_queries)
+        return vals, pos, counts
+
     def finalize(self, payload, q_n, n):
         _, idx, counts = payload
         out = []
         for k in range(q_n):
             c = min(int(counts[k]), idx.shape[1], self.k)
             out.append(np.asarray(idx[k, :c]).astype(np.int64))
+        return out
+
+    def finalize_visits(self, payload, vctx):
+        _, pos, counts = payload
+        out = []
+        for k in range(vctx.n_queries):
+            c = min(int(counts[k]), pos.shape[1], self.k)
+            p = np.asarray(pos[k, :c]).astype(np.int64)
+            out.append(vctx.perm[p] if vctx.perm is not None else p)
         return out
 
     def from_ids(self, ids, cols):
@@ -243,9 +303,15 @@ class TopK(ResultSpec):
 @dataclasses.dataclass(frozen=True)
 class Agg(ResultSpec):
     """A per-query aggregate (min | max | sum) of attribute ``dim`` over the
-    matching set. Empty matches finalize to 0.0 (sum) or NaN (min/max)."""
+    matching set. Empty matches finalize to 0.0 (sum) or NaN (min/max).
+
+    On the two-phase paths the per-visit partials reduce per query through
+    the visit-index table (the reference adds them with a segment scatter,
+    which on the card would take float atomics), so this spec needs it too.
+    """
 
     kind: ClassVar[str] = "agg"
+    needs_visit_index: ClassVar[bool] = True
     op: str = "sum"
     dim: int = 0
 
@@ -263,6 +329,14 @@ class Agg(ResultSpec):
         from repro_torch.kernels import reducers
         return reducers.masked_agg(masks, data_cm[self.dim], self.op,
                                    tile_n=tile_n, backend=backend)
+
+    def reduce_visits(self, masks, data_cm, qids, bids, valid, visit_index,
+                      *, tile_n, n_queries, backend):
+        from repro_torch.kernels import reducers
+        agg = reducers.visit_agg(masks, data_cm, self.dim, bids, valid,
+                                 visit_index, self.op, tile_n)
+        counts = reducers.visit_mask_counts(masks, qids, valid, n_queries)
+        return agg, counts
 
     def finalize(self, payload, q_n, n):
         agg, counts = payload
@@ -296,6 +370,19 @@ class Agg(ResultSpec):
 # Shared default instances.
 IDS = Ids()
 COUNT = Count()
+
+
+@dataclasses.dataclass(frozen=True)
+class VisitHostCtx:
+    """Host-side context ``finalize_visits`` needs to map a visit-shaped
+    payload back to per-query results (two-phase paths only)."""
+
+    qids: np.ndarray            # (V,) int32 query id per real visit
+    bids: np.ndarray            # (V,) int32 block id per real visit
+    tile_n: int
+    n: int                      # logical object count
+    n_queries: int
+    perm: Optional[np.ndarray]  # position -> original id (None = identity)
 
 
 def resolve_spec(spec: Optional[ResultSpec] = None) -> ResultSpec:

@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-SOURCES = ("scan.cu", "reducers.cu")
+SOURCES = ("scan.cu", "reducers.cu", "visit.cu", "va_filter.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +41,9 @@ _SIGNATURES = {
     "mdrq_multi_scan_vertical": (_P, _LL, _I, _P, _I, _P, _P, _I, _P, _I, _I, _P),
     "mdrq_masked_fill": (_P, _P, _F, _LL, _I, _P, _I, _I, _P),
     "mdrq_masked_agg": (_P, _P, _I, _F, _LL, _I, _P, _I, _I, _P),
+    "mdrq_multi_scan_visit": (_P, _LL, _I, _P, _P, _LL, _P, _P, _I, _I, _P,
+                              _I, _P),
+    "mdrq_multi_va_filter": (_P, _LL, _I, _I, _P, _P, _I, _P, _I, _I, _P),
 }
 
 # Kernel launches per wrapper name since the last ``reset_launches``.

@@ -1,11 +1,12 @@
 """Fused multi-query (batched) columnar range scans.
 
 Ports ``repro/kernels/multi_scan.py`` (``multi_scan_tiles``,
-``multi_scan_vertical``): a (Q, m) batch of query boxes against the (m, n)
-columnar dataset in one launch, each data tile read from device memory once
-per batch, not once per query. On a CUDA tensor each wrapper launches its
-kernel in ``csrc/scan.cu`` (see the design note there); on a CPU tensor it
-runs the plain version in ``ref.py``.
+``multi_scan_vertical``, ``multi_scan_visit``): a (Q, m) batch of query boxes
+against the (m, n) columnar dataset in one launch, each data tile read from
+device memory once per batch, not once per query; the visit form scans only
+the (query, block) pairs a two-phase index lists. On a CUDA tensor each
+wrapper launches its kernel in ``csrc/scan.cu`` or ``csrc/visit.cu`` (see the
+design notes there); on a CPU tensor it runs the plain version in ``ref.py``.
 
 Query bounds are laid out **query-minor**: ``lower``/``upper`` are
 ``(m_pad, Q)`` with one column per query.
@@ -15,8 +16,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.range_scan import (DEFAULT_TILE_N, check_tiling,
-                                            scan_cuda, vertical_cuda)
+from repro_torch.kernels.range_scan import (DEFAULT_TILE_N, check_visits,
+                                            blocks_view, check_tiling,
+                                            scan_cuda, vertical_cuda,
+                                            visit_cuda)
 
 
 def multi_scan_tiles(
@@ -79,3 +82,39 @@ def multi_scan_vertical(
     if not data_cm.is_cuda:
         return _ref.multi_scan_vertical_ref(data_cm, dim_ids, lower, upper)
     return vertical_cuda("multi_scan_vertical", data_cm, dim_ids, lower, upper)
+
+
+def multi_scan_visit(
+    data_cm: torch.Tensor,
+    query_ids: torch.Tensor,
+    block_ids: torch.Tensor,
+    lower: torch.Tensor,
+    upper: torch.Tensor,
+    *,
+    tile_n: int = DEFAULT_TILE_N,
+) -> torch.Tensor:
+    """Batched two-phase refinement: visit each (query, block) pair once.
+
+    Args:
+      data_cm: (m_pad, n_pad) columnar data, n_pad % tile_n == 0.
+      query_ids: (V,) int32 — which query's bounds each visit uses.
+      block_ids: (V,) int32 tile indices; padding entries are negative
+        (clamped to 0; callers drop their output rows).
+      lower, upper: (m_pad, Q) finite bounds, one column per query.
+
+    Returns:
+      (V, tile_n) int8 per-visit masks.
+    """
+    m_pad = check_visits(data_cm, block_ids, tile_n)
+    if query_ids.shape != block_ids.shape:
+        raise ValueError(f"query_ids {tuple(query_ids.shape)} != block_ids "
+                         f"{tuple(block_ids.shape)}")
+    if lower.ndim != 2 or lower.shape[0] != m_pad or lower.shape[1] < 1 \
+            or upper.shape != lower.shape:
+        raise ValueError(f"bounds {tuple(lower.shape)}, {tuple(upper.shape)} "
+                         f"are not ({m_pad}, Q >= 1)")
+    if not data_cm.is_cuda:
+        return _ref.multi_scan_blocks_ref(blocks_view(data_cm, tile_n),
+                                          query_ids, block_ids, lower, upper)
+    return visit_cuda("multi_scan_visit", data_cm, query_ids, block_ids, lower,
+                      upper, tile_n)

@@ -28,6 +28,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import multi_scan as _ms
 from repro_torch.kernels import range_scan as _rs
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import va_filter as _va
 from repro_torch.obs import metrics as _obs_metrics
 
 BACKENDS = ("auto", "torch")
@@ -120,13 +121,15 @@ def prepare_columnar(
     Dim padding rows are 0.0 (queried with match-all bounds); object padding
     columns are +inf (never match any finite upper bound).
 
-    Returns (padded float32 array, m, n) with the original sizes.
+    Returns (padded C-contiguous float32 array, m, n) with the original
+    sizes. (A column-permuted input, as the tree builds pass, can come in
+    column-major; the kernels take row-major rows.)
     """
     from repro_torch.core import types as T  # deferred: breaks ops<->core cycle
     m, n = cols.shape
     x = T.pad_axis(cols, 0, _rs.SUBLANES, 0.0)
     x = T.pad_axis(x, 1, tile_n, np.inf)
-    return np.asarray(x, dtype=np.float32), m, n
+    return np.ascontiguousarray(x, dtype=np.float32), m, n
 
 
 def query_bounds_device(q, m_pad: int, dtype: torch.dtype,
@@ -225,6 +228,74 @@ multi_range_scan_vertical = counted(
 )(_vertical_masks)
 
 
+def _visit_masks(data_cm, query_ids, block_ids, lower, upper, *,
+                 tile_n=_rs.DEFAULT_TILE_N, backend="auto"):
+    if check_backend(backend) == "torch":
+        return _ref.multi_scan_blocks_ref(_rs.blocks_view(data_cm, tile_n),
+                                          query_ids, block_ids, lower, upper)
+    return _ms.multi_scan_visit(data_cm, query_ids, block_ids, lower, upper,
+                                tile_n=tile_n)
+
+
+multi_range_scan_visit = counted(
+    "multi_range_scan_visit",
+    "Batched two-phase refinement over a (query, block) visit list "
+    "-> (V, tile_n) int8 per-visit masks.",
+)(_visit_masks)
+
+
+def _range_scan_visit(data_cm, block_ids, lower, upper, *,
+                      tile_n=_rs.DEFAULT_TILE_N, backend="auto"):
+    if check_backend(backend) == "torch":
+        return _ref.multi_scan_blocks_ref(_rs.blocks_view(data_cm, tile_n),
+                                          torch.zeros_like(block_ids),
+                                          block_ids, lower, upper)
+    return _rs.range_scan_visit(data_cm, block_ids, lower, upper,
+                                tile_n=tile_n)
+
+
+range_scan_visit = counted(
+    "range_scan_visit",
+    "Scan only the listed tile ids -> (n_visit, tile_n) int8 masks.",
+)(_range_scan_visit)
+
+
+def _va_filter(packed, cell_lo, cell_hi, m, *, backend="auto"):
+    if check_backend(backend) == "torch":
+        return _ref.va_filter_packed_ref(packed, cell_lo[:, 0], cell_hi[:, 0],
+                                         m)
+    return _va.va_filter_packed(packed, cell_lo, cell_hi, m)
+
+
+va_filter = counted(
+    "va_filter",
+    "Packed VA-file approximation filter -> (n_pad,) int8 candidate mask.",
+)(_va_filter)
+
+
+def _multi_va_filter(packed, cell_lo, cell_hi, m, *, block_n, backend="auto"):
+    if check_backend(backend) == "torch":
+        out = _ref.multi_va_filter_packed_ref(packed, cell_lo, cell_hi, m)
+    else:
+        out = _va.multi_va_filter_packed(packed, cell_lo, cell_hi, m)
+    q_n, n_pad = out.shape
+    if n_pad % block_n:
+        raise ValueError(f"n_pad={n_pad} is not a multiple of "
+                         f"block_n={block_n}")
+    # Reduce to per-(query, block) survivor bits on the device: only the
+    # small (Q, n_blocks) array ever crosses to the host.
+    return out.ne(0).reshape(q_n, n_pad // block_n, block_n).any(dim=2)
+
+
+multi_va_filter = counted(
+    "multi_va_filter",
+    "Batched packed VA filter, one launch per query batch: the (Q, n_pad) "
+    "candidate masks reduced on the device, in the same op, to "
+    "(Q, n_pad // block_n) bool per-block survivor bits (the phase-2 visit "
+    "list seed).",
+)(_multi_va_filter)
+
+
 # -- fused spec-reduce launches (the ResultSpec layer's device half) ----------
 # Each op composes a mask kernel with the spec's on-device reducer in ONE
 # counted op, so a reduced result shape — count, top-k, aggregate — is one
@@ -257,6 +328,27 @@ multi_scan_vertical_reduce = counted(
     "multi_scan_vertical_reduce",
     "Batched partial-match scan + ResultSpec reducer in one launch.",
 )(_multi_scan_vertical_reduce)
+
+
+def _multi_visit_reduce(data_cm, query_ids, block_ids, valid, visit_index,
+                        lower, upper, delta_cm=None, base_tomb=None, *, spec,
+                        tile_n=_rs.DEFAULT_TILE_N, n_queries=1, backend="auto"):
+    if delta_cm is not None or base_tomb is not None:
+        raise NotImplementedError("the delta plane is not ported yet: "
+                                  "multi_visit_reduce serves a frozen dataset")
+    masks = _visit_masks(data_cm, query_ids, block_ids, lower, upper,
+                         tile_n=tile_n, backend=backend)
+    return spec.reduce_visits(masks, data_cm, query_ids, block_ids, valid,
+                              visit_index, tile_n=tile_n, n_queries=n_queries,
+                              backend=backend)
+
+
+multi_visit_reduce = counted(
+    "multi_visit_reduce",
+    "Batched two-phase refinement over a (query, block) visit list + the "
+    "ResultSpec's on-device visit reducer in one launch (shared by the tree "
+    "indexes and the VA-file phase 2).",
+)(_multi_visit_reduce)
 
 
 def _mask_counts(mask: torch.Tensor) -> torch.Tensor:

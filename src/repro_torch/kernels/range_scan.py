@@ -1,9 +1,10 @@
 """Single-query columnar range scans, and the launch plumbing every scan shares.
 
 Ports ``repro/kernels/range_scan.py`` (``range_scan_tiles``,
-``range_scan_vertical``). On the card each is the Q=1 launch of the batched
-kernel body in ``csrc/scan.cu`` (``multi_scan_kernel``,
-``multi_scan_vertical_kernel``); on a CPU tensor it runs the plain version.
+``range_scan_vertical``, ``range_scan_visit``). On the card each is the Q=1
+launch of a batched kernel body: ``multi_scan_kernel`` and
+``multi_scan_vertical_kernel`` in ``csrc/scan.cu``, ``multi_scan_visit_kernel``
+in ``csrc/visit.cu``. On a CPU tensor each runs its plain version.
 
 Layout and padding contract (``ops.prepare_columnar``): data is
 dimension-major ``(m_pad, n_pad)``; m pads to a multiple of ``SUBLANES`` with
@@ -161,3 +162,78 @@ def range_scan_vertical(
         return _ref.range_scan_ref(data_cm[d], lower[d, 0], upper[d, 0])
     return vertical_cuda("range_scan_vertical", data_cm, dim_ids[None, :],
                          lower, upper)[0]
+
+
+def check_visits(data_cm: torch.Tensor, block_ids: torch.Tensor,
+                 tile_n: int) -> int:
+    """Raise unless the data's tiling and the (V,) block ids fit the visit
+    kernel; returns m_pad."""
+    m_pad, n_pad = data_cm.shape
+    check_tiling(m_pad, n_pad, tile_n)
+    if block_ids.ndim != 1:
+        raise ValueError(f"block_ids must be (V,), got {tuple(block_ids.shape)}")
+    return m_pad
+
+
+def blocks_view(data_cm: torch.Tensor, tile_n: int) -> torch.Tensor:
+    """(m_pad, n_pad) columnar data as an (n_blocks, m_pad, tile_n) view."""
+    m_pad, n_pad = data_cm.shape
+    return data_cm.reshape(m_pad, n_pad // tile_n, tile_n).permute(1, 0, 2)
+
+
+def visit_cuda(name: str, data_cm: torch.Tensor, query_ids, block_ids: torch.Tensor,
+               lower: torch.Tensor, upper: torch.Tensor,
+               tile_n: int) -> torch.Tensor:
+    """Launch ``multi_scan_visit_kernel`` -> (V, tile_n) int8; counted as
+    ``name``. ``query_ids=None`` reads bounds column 0 for every visit."""
+    dev = data_cm.device
+    data = cuda_input(data_cm, torch.float32, "data_cm", dev)
+    m_pad, n_pad = data.shape
+    n_visit = block_ids.shape[0]
+    ids = []
+    for x, label in ((query_ids, "query_ids"), (block_ids, "block_ids")):
+        if x is None:
+            ids.append(None)
+            continue
+        if x.device != dev:
+            raise ValueError(f"{label} is on {x.device}, data on {dev}")
+        ids.append(x.to(torch.int32).contiguous())
+    lo = bounds_input(lower, "lower", data)
+    up = bounds_input(upper, "upper", data)
+    out = torch.empty((n_visit, tile_n), dtype=torch.int8, device=dev)
+    if n_visit:
+        _build.launch(name, "mdrq_multi_scan_visit", dev, data, n_pad, m_pad,
+                      ids[0], ids[1], n_visit, lo, up, lo.shape[1], tile_n, out)
+    return out
+
+
+def range_scan_visit(
+    data_cm: torch.Tensor,
+    block_ids: torch.Tensor,
+    lower: torch.Tensor,
+    upper: torch.Tensor,
+    *,
+    tile_n: int = DEFAULT_TILE_N,
+) -> torch.Tensor:
+    """Two-phase scan of one query: visit only the listed (m_pad, tile_n)
+    blocks.
+
+    Args:
+      data_cm: (m_pad, n_pad) columnar data, n_pad % tile_n == 0.
+      block_ids: (n_visit,) int32 tile indices into [0, n_pad / tile_n);
+        padding entries are negative (clamped to 0; callers drop their rows).
+      lower, upper: (m_pad, 1) finite bounds.
+
+    Returns:
+      (n_visit, tile_n) int8 per-visit masks.
+    """
+    m_pad = check_visits(data_cm, block_ids, tile_n)
+    if lower.shape != (m_pad, 1) or upper.shape != (m_pad, 1):
+        raise ValueError(f"bounds {tuple(lower.shape)}, {tuple(upper.shape)} "
+                         f"!= ({m_pad}, 1)")
+    if not data_cm.is_cuda:
+        zeros = torch.zeros_like(block_ids)
+        return _ref.multi_scan_blocks_ref(blocks_view(data_cm, tile_n), zeros,
+                                          block_ids, lower, upper)
+    return visit_cuda("range_scan_visit", data_cm, None, block_ids, lower,
+                      upper, tile_n)

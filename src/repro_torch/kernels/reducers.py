@@ -18,6 +18,13 @@ The top-k selection is not a kernel of the reference either (it calls
 ``jax.lax.top_k``), so ``torch.topk`` selects — on a composite key that
 makes its order exact: ties order by ascending position, as the reference's
 does.
+
+The visit-shaped reducers (``visit_*``) serve the two-phase paths: they take
+the (V, tile_n) masks of a (query, block) visit list and reduce them per
+query. They are plain torch ops in both packages (the reference's are jnp
+segment reductions). Float sums never go through atomics: each visit's row
+reduces on its own, then each query's visits reduce through the host-built
+``visit_index`` table in a fixed order, so repeated sums are bit-identical.
 """
 from __future__ import annotations
 
@@ -129,15 +136,29 @@ def topk_ascending_ties(values: torch.Tensor, k: int,
     distinct, and its descending order is exactly the wanted one.
     """
     q_n, n = values.shape
-    rank = (2 ** 32 - 1) - torch.arange(n, dtype=torch.int64,
-                                        device=values.device)
+    pos = torch.arange(n, dtype=torch.int64, device=values.device)
     rows = max(1, _TOPK_CHUNK_ELEMS // n)
     idx = torch.empty((q_n, k), dtype=torch.int64, device=values.device)
     for r in range(0, q_n, rows):
         key = values[r: r + rows] if largest else -values[r: r + rows]
-        comp = _ordered_bits(key).to(torch.int64) * (2 ** 32) + rank
-        idx[r: r + rows] = torch.topk(comp, k, dim=-1).indices
+        idx[r: r + rows] = torch.topk(_composite(key, pos), k, dim=-1).indices
     return idx
+
+
+def _composite(key: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """int64 top-k key: the order-preserving bits of the float32 ``key`` in
+    the high 32 bits, ``2**32 - 1 - pos`` in the low 32 (``pos`` < 2**32,
+    broadcast against ``key``). Distinct positions give distinct composites;
+    descending order is value order, ties by ascending position."""
+    return _ordered_bits(key).to(torch.int64) * (2 ** 32) \
+        + ((2 ** 32 - 1) - pos)
+
+
+def _split_composite(comp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of ``_composite`` -> (float32 key, int64 position)."""
+    bits = (comp >> 32).to(torch.int32)  # floor: the low half is >= 0
+    key = (bits ^ ((bits >> 31) & 0x7FFFFFFF)).view(torch.float32)
+    return key, (2 ** 32 - 1) - (comp & 0xFFFFFFFF)
 
 
 def masked_topk(masks, values, k: int, largest: bool, *, tile_n: int,
@@ -175,3 +196,98 @@ def masked_agg(masks, values, op: str, *, tile_n: int, backend: str):
         agg = masked_agg_tiles(masks, values, op, tile_n=tile_n)
     counts = masks.ne(0).sum(dim=-1, dtype=torch.int32)
     return agg, counts
+
+
+# -- visit-shaped reducers (two-phase paths) ----------------------------------
+# Padding visits (block -1, clamped to block 0) carry ``valid == 0`` and are
+# masked out. Float temporaries are built ``_TOPK_CHUNK_ELEMS`` elements at a
+# time, so a broad query that visits every block never materializes a
+# (V, tile_n) float32 or int64 array in one piece.
+
+def _visit_chunks(n_visit: int, tile_n: int):
+    step = max(1, _TOPK_CHUNK_ELEMS // tile_n)
+    return (slice(v0, v0 + step) for v0 in range(0, n_visit, step))
+
+
+def gather_visit_values(data_cm, dim: int, bids, tile_n: int):
+    """(V, tile_n) attribute values of the visited blocks (padding -> block 0,
+    masked out downstream via ``valid``)."""
+    n_blocks = data_cm.shape[1] // tile_n
+    return data_cm[dim].reshape(n_blocks, tile_n)[bids.long().clamp(min=0)]
+
+
+def _live(masks, valid):
+    return torch.logical_and(masks != 0, valid[:, None] > 0)
+
+
+def visit_mask_counts(masks, qids, valid, n_queries: int):
+    """(V, tile_n) visit masks -> (n_queries,) int32 per-query match counts
+    (integer adds: exact in any order)."""
+    per_visit = masks.ne(0).sum(dim=-1, dtype=torch.int32) * valid
+    out = torch.zeros((n_queries,), dtype=torch.int32, device=masks.device)
+    return out.index_add_(0, qids.long(), per_visit.to(torch.int32))
+
+
+def _gather_by_query(per_visit, visit_index, fill):
+    """(V, ...) per-visit values -> (Q, M, ...) through the visit-index table,
+    whose empty slots point one past the last row (filled with ``fill``)."""
+    pad = torch.full((1, *per_visit.shape[1:]), fill, dtype=per_visit.dtype,
+                     device=per_visit.device)
+    return torch.cat([per_visit, pad])[visit_index.long()]
+
+
+def visit_agg(masks, data_cm, dim: int, bids, valid, visit_index, op: str,
+              tile_n: int):
+    """Aggregate attribute ``dim`` over each query's visit masks ->
+    (Q,) float32 (the reduction identity where nothing matches).
+
+    Each visit row reduces to one partial; the partials of a query reduce
+    through ``visit_index`` in slot order."""
+    fill = AGG_FILL[op]
+    red = {"sum": torch.sum, "min": torch.amin, "max": torch.amax}[op]
+    per_visit = torch.empty((masks.shape[0],), dtype=torch.float32,
+                            device=masks.device)
+    for sl in _visit_chunks(masks.shape[0], tile_n):
+        vals = gather_visit_values(data_cm, dim, bids[sl], tile_n)
+        filled = torch.where(_live(masks[sl], valid[sl]),
+                             vals.to(torch.float32), fill)
+        per_visit[sl] = red(filled, dim=-1)
+    return red(_gather_by_query(per_visit, visit_index, fill), dim=-1)
+
+
+def visit_topk(masks, data_cm, dim: int, bids, valid, visit_index, k: int,
+               largest: bool, tile_n: int):
+    """Per-query top-k of attribute ``dim`` over scattered visit masks, in
+    two stages, as the reference selects.
+
+    Stage 1 reduces each visit row to its own top-k' (k' = min(k, tile_n)).
+    Stage 2 gathers the partials through ``visit_index`` into (Q, M·k') and
+    re-selects the global top-k per query. Both stages select on the
+    composite key with position = ``block * tile_n + offset`` (the storage
+    position, permuted for the trees), so ties order by ascending position
+    exactly as the reference's two ``top_k`` calls order them: visits of a
+    query sit in the table by ascending block id.
+
+    Returns ((Q, k'') float32 values, (Q, k'') int32 positions),
+    k'' = min(k, M·k').
+    """
+    fill = float("-inf") if largest else float("inf")
+    k1 = min(int(k), tile_n)
+    offsets = torch.arange(tile_n, dtype=torch.int64, device=masks.device)
+    comp1 = torch.empty((masks.shape[0], k1), dtype=torch.int64,
+                        device=masks.device)
+    for sl in _visit_chunks(masks.shape[0], tile_n):
+        b = bids[sl].long().clamp(min=0)
+        vals = gather_visit_values(data_cm, dim, b, tile_n).to(torch.float32)
+        key = torch.where(_live(masks[sl], valid[sl]), vals, fill)
+        if not largest:
+            key = -key
+        comp = _composite(key, b[:, None] * tile_n + offsets)
+        comp1[sl] = torch.topk(comp, k1, dim=-1).values
+    # empty table slots can never outrank a real entry
+    g = _gather_by_query(comp1, visit_index, torch.iinfo(torch.int64).min)
+    q_n, m_vis, _ = g.shape
+    k2 = min(int(k), m_vis * k1)
+    top = torch.topk(g.reshape(q_n, m_vis * k1), k2, dim=-1).values
+    key, pos = _split_composite(top)
+    return (key if largest else -key), pos.to(torch.int32)

@@ -74,3 +74,62 @@ def masked_agg_ref(masks: torch.Tensor, values: torch.Tensor,
     if op == "sum":
         return filled.sum(dim=-1)
     return filled.amin(dim=-1) if op == "min" else filled.amax(dim=-1)
+
+
+# Visits of the block-visit plain version gathered at once: bounds its
+# (chunk, tile_n) float32 temporaries whatever the visit count.
+_VISIT_CHUNK_ELEMS = 1 << 26
+
+
+def multi_scan_blocks_ref(data_blocks: torch.Tensor, query_ids: torch.Tensor,
+                          block_ids: torch.Tensor, lower: torch.Tensor,
+                          upper: torch.Tensor) -> torch.Tensor:
+    """(n_blocks, m, tn) columnar leaf blocks (a view is fine), (V,) query
+    ids, (V,) block ids (negative = padding, clamped to block 0), (m, Q)
+    query-minor bounds -> (V, tn) int8 per-visit masks."""
+    n_visit, tn = block_ids.shape[0], data_blocks.shape[2]
+    out = torch.empty((n_visit, tn), dtype=torch.int8, device=data_blocks.device)
+    bids = block_ids.long().clamp(min=0)
+    qids = query_ids.long()
+    lo_t = lower.T.to(data_blocks.dtype)  # (Q, m)
+    up_t = upper.T.to(data_blocks.dtype)
+    step = max(1, _VISIT_CHUNK_ELEMS // tn)
+    for v0 in range(0, n_visit, step):
+        b, q = bids[v0: v0 + step], qids[v0: v0 + step]
+        lo, up = lo_t[q], up_t[q]  # (chunk, m)
+        acc = None
+        for j in range(data_blocks.shape[1]):
+            rows = data_blocks[:, j, :][b]  # (chunk, tn)
+            ok = torch.logical_and(rows >= lo[:, j, None], rows <= up[:, j, None])
+            acc = ok if acc is None else torch.logical_and(acc, ok)
+        out[v0: v0 + step] = acc.to(torch.int8)
+    return out
+
+
+def va_filter_packed_ref(packed: torch.Tensor, cell_lo: torch.Tensor,
+                         cell_hi: torch.Tensor, m: int) -> torch.Tensor:
+    """(w, n) int32 packed codes (word w holds dims [16w, 16w+16) in 2-bit
+    fields), (m,) int32 query cell bounds -> (n,) int8 candidate mask."""
+    return multi_va_filter_packed_ref(packed, cell_lo.reshape(-1, 1),
+                                      cell_hi.reshape(-1, 1), m)[0]
+
+
+def multi_va_filter_packed_ref(packed: torch.Tensor, cell_lo: torch.Tensor,
+                               cell_hi: torch.Tensor, m: int) -> torch.Tensor:
+    """(w, n) int32 packed codes, (m_s, Q) int32 query-minor cell bounds
+    (rows from m on are never read) -> (Q, n) int8 candidate masks: 1 where
+    every dim's code lies in the query's [cell_lo, cell_hi]."""
+    # deferred: va_filter's wrappers import this module
+    from repro_torch.kernels.va_filter import (BITS_PER_DIM, CODE_MASK,
+                                               DIMS_PER_WORD)
+    n = packed.shape[1]
+    lo = cell_lo.to(torch.int32)
+    hi = cell_hi.to(torch.int32)
+    acc = torch.ones((lo.shape[1], n), dtype=torch.bool, device=packed.device)
+    for d in range(m):
+        wi, k = divmod(d, DIMS_PER_WORD)
+        field = (packed[wi] >> (BITS_PER_DIM * k)) & CODE_MASK  # (n,)
+        ok = torch.logical_and(field[None, :] >= lo[d, :, None],
+                               field[None, :] <= hi[d, :, None])
+        acc = torch.logical_and(acc, ok)
+    return acc.to(torch.int8)

@@ -8,9 +8,11 @@ run these without it):
 
 Shapes go past the GMRQB case ``chip_smoke.py`` covers: padded object counts
 that force smaller thread blocks, a 100-dimensional dataset whose tile must
-shrink to fit shared memory, query counts that cross the kernels' 32-query
-groups, and the 64-bit offsets of a mask past 2**31 bytes. Masks must be
-exactly equal; sums within rtol=1e-5 (float32 sums in another order) and
+shrink to fit shared memory (and whose VA codes take 7 packed words), query
+counts that cross the kernels' 32-query groups, visit lists whose length is
+not a power of two and whose tail is padding (block -1), and the 64-bit
+offsets of a mask or a visit output past 2**31 bytes. Masks must be exactly
+equal; sums within rtol=1e-5 (float32 sums in another order) and
 bit-identical across repeated runs; min/max exactly equal.
 """
 import numpy as np
@@ -20,7 +22,8 @@ import torch
 from repro_torch.core import (Agg, Count, Ids, Mask, MDRQEngine, QueryBatch,
                               RangeQuery, TopK)
 from repro_torch.data import gmrqb
-from repro_torch.kernels import multi_scan, ops, range_scan, ref, reducers
+from repro_torch.kernels import (multi_scan, ops, range_scan, ref, reducers,
+                                 va_filter)
 
 pytestmark = pytest.mark.cuda
 SUM_RTOL = 1e-5
@@ -154,3 +157,107 @@ def test_engine_matches_plain_backend(dev, spec):
             np.testing.assert_allclose(g, w, rtol=SUM_RTOL)
         else:
             assert g == w or (np.isnan(g) and np.isnan(w))
+
+
+def _visits(n_q, n_blocks, n_visit, seed, dev):
+    """(V,) query and block ids, V not a power of two, the tail padding."""
+    rng = np.random.default_rng(seed)
+    qids = rng.integers(0, n_q, size=n_visit).astype(np.int32)
+    bids = rng.integers(0, n_blocks, size=n_visit).astype(np.int32)
+    qids[-5:], bids[-5:] = 0, -1
+    return torch.as_tensor(qids, device=dev), torch.as_tensor(bids, device=dev)
+
+
+@pytest.mark.parametrize("m,n,n_q,tile_n", SHAPES)
+def test_visit_kernels_match_plain(dev, m, n, n_q, tile_n):
+    data, _, lo, up = _case(m, n, n_q, tile_n, seed=m + 3 * n_q, dev=dev)
+    n_blocks = data.shape[1] // tile_n
+    qids, bids = _visits(n_q, n_blocks, 3 * n_blocks + 7, seed=n_q, dev=dev)
+    blocks = range_scan.blocks_view(data, tile_n)
+    got = multi_scan.multi_scan_visit(data, qids, bids, lo, up, tile_n=tile_n)
+    assert torch.equal(got, ref.multi_scan_blocks_ref(blocks, qids, bids, lo, up))
+    lo1, up1 = lo[:, :1].contiguous(), up[:, :1].contiguous()
+    one = range_scan.range_scan_visit(data, bids, lo1, up1, tile_n=tile_n)
+    assert torch.equal(one, ref.multi_scan_blocks_ref(
+        blocks, torch.zeros_like(bids), bids, lo1, up1))
+    assert ops.kernel_launches() == {"multi_scan_visit": 1,
+                                     "range_scan_visit": 1}
+
+
+@pytest.mark.parametrize("m,n_q", [(5, 1), (19, 33), (19, 128), (100, 40)])
+def test_va_filter_kernels_match_plain(dev, m, n_q):
+    rng = np.random.default_rng(m + n_q)
+    codes = rng.integers(0, 4, size=(m, 20000)).astype(np.uint8)
+    packed = np.zeros((-(-m // 16), 20 * 1024), np.int32)  # n pads to 20480
+    packed[:, :20000] = va_filter.pack_codes(codes)
+    m_s = -(-m // 8) * 8
+    lo = np.zeros((m_s, n_q), np.int32)
+    hi = np.full((m_s, n_q), 3, np.int32)
+    narrow = rng.random((m, n_q)) < min(0.5, 4.0 / m)
+    lo[:m][narrow] = rng.integers(0, 3, size=int(narrow.sum()))
+    hi[:m][narrow] = np.minimum(lo[:m][narrow] + rng.integers(-1, 3, size=int(narrow.sum())), 3)
+    pk = torch.as_tensor(packed, device=dev)
+    clo, chi = torch.as_tensor(lo, device=dev), torch.as_tensor(hi, device=dev)
+    got = va_filter.multi_va_filter_packed(pk, clo, chi, m)
+    want = ref.multi_va_filter_packed_ref(pk, clo, chi, m)
+    assert torch.equal(got, want) and bool(want.any())
+    one = va_filter.va_filter_packed(pk, clo[:, :1].contiguous(),
+                                     chi[:, :1].contiguous(), m)
+    assert torch.equal(one, ref.va_filter_packed_ref(pk, clo[:, 0], chi[:, 0], m))
+    assert ops.kernel_launches() == {"multi_va_filter_packed": 1,
+                                     "va_filter_packed": 1}
+
+
+def test_visit_offsets_past_int32(dev):
+    """V * tile_n > 2**31: visit rows past the 32-bit boundary are right."""
+    m, tile_n, n_blocks = 8, 1024, 64
+    g = torch.Generator(device=dev).manual_seed(1)
+    data = torch.rand((m, n_blocks * tile_n), device=dev, generator=g)
+    lo = torch.full((m, 2), 0.1, device=dev)
+    up = torch.full((m, 2), 0.9, device=dev)
+    lo[0, 1] = 0.5
+    n_visit = 2 ** 21 + 2 ** 14 + 3
+    bids = torch.arange(n_visit, device=dev, dtype=torch.int32) % n_blocks
+    qids = (torch.arange(n_visit, device=dev, dtype=torch.int32) // 7) % 2
+    got = multi_scan.multi_scan_visit(data, qids, bids, lo, up, tile_n=tile_n)
+    assert got.numel() > 2 ** 31
+    rows = torch.tensor([0, 2 ** 21 - 1, 2 ** 21, n_visit - 1], device=dev)
+    want = ref.multi_scan_blocks_ref(range_scan.blocks_view(data, tile_n),
+                                     qids[rows], bids[rows], lo, up)
+    assert torch.equal(got[rows], want)
+
+
+@pytest.mark.parametrize("spec", [Ids(), Count(), Mask(), TopK(k=10, dim=4),
+                                  TopK(k=10, dim=4, largest=False),
+                                  Agg("sum", 3), Agg("min", 2), Agg("max", 18)],
+                         ids=str)
+def test_index_paths_match_plain_backend(dev, spec):
+    ds = gmrqb.build(50_000, seed=1)
+    qs = [q for _, q in gmrqb.mixed_workload(ds, 48, seed=1)]
+    eng = MDRQEngine(ds, tile_n=1024)
+    plain = MDRQEngine(ds, tile_n=1024, backend="torch")
+    for method in ("kdtree", "rstar", "vafile"):
+        got = eng.query_batch(qs, method=method, spec=spec)
+        want = plain.query_batch(qs, method=method, spec=spec)
+        for g, w in zip(got, want):
+            if isinstance(w, np.ndarray):
+                np.testing.assert_array_equal(g, w)
+            elif spec.kind == "agg" and spec.op == "sum":
+                np.testing.assert_allclose(g, w, rtol=SUM_RTOL)
+            else:
+                assert g == w or (np.isnan(g) and np.isnan(w))
+    launches = ops.kernel_launches()
+    assert launches["multi_scan_visit"] == 3
+    assert launches["multi_va_filter_packed"] == 1
+
+
+def test_visit_sums_are_bit_identical(dev):
+    """The visit reducers add no float atomics: repeated sums are equal to
+    the bit, on every two-phase path."""
+    ds = gmrqb.build(50_000, seed=2)
+    qs = [q for _, q in gmrqb.mixed_workload(ds, 64, seed=2)]
+    eng = MDRQEngine(ds, tile_n=1024)
+    for method in ("kdtree", "rstar", "vafile"):
+        first = eng.query_batch(qs, method=method, spec=Agg("sum", 3))
+        again = eng.query_batch(qs, method=method, spec=Agg("sum", 3))
+        assert np.array_equal(np.array(first), np.array(again))

@@ -212,8 +212,8 @@ def test_explicit_methods_match_reference(engines):
 
 def test_plain_backend_matches_auto_on_cpu(engines):
     port, _, cols, queries = engines
-    plain = MDRQEngine(port.dataset, tile_n=TILE_N, device="cpu",
-                       backend="torch")
+    plain = MDRQEngine(port.dataset, structures=("scan",), tile_n=TILE_N,
+                       device="cpu", backend="torch")
     for spec in (Ids(), TopK(k=4, dim=0, largest=False), Agg("sum", 1)):
         _assert_same(spec, plain.query_batch(queries, spec=spec),
                      port.query_batch(queries, spec=spec))
@@ -227,7 +227,7 @@ def test_default_device_is_cuda():
         MDRQEngine(ds)
 
 
-@pytest.mark.parametrize("name", ["kdtree", "rstar", "vafile", "rowscan"])
+@pytest.mark.parametrize("name", ["rowscan"])
 def test_later_structures_name_their_slice(name):
     ds = synthetic.synt_uni(1024, 3, seed=0)
     with pytest.raises(ValueError, match="slice"):
