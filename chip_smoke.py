@@ -12,16 +12,19 @@ non-zero without printing a result:
   3. data    — GMRQB, 10 M records x 19 attributes (seed 0); the engine under
                test and a second engine running the plain PyTorch versions
                (``backend="torch"``) on the same card, each with the
-               reference's four structures: the columnar scan, the kd-tree,
+               reference's four structures — the columnar scan, the kd-tree,
                the STR R*-tree and the VA-file, each padded to
                (24, 10,000,384) float32 on the card (the trees permuted), plus
-               the VA-file's packed codes. Each build's time is printed.
+               the VA-file's packed codes — and the row-major scan
+               (``rowscan=True``: (10,000,384, 24) float32). Each build's time
+               is printed.
   4. kernels — each hand kernel against its plain version at the main paths'
                shapes (Q = 1 and Q = 128; the visit kernel at the visit list
-               the kd-tree prunes the 128-query workload to): masks exactly
-               equal, aggregates within float32 summation tolerance, repeated
-               sums bit-identical; CUDA-event times of the kernel, its plain
-               version and, where one exists, the one-call PyTorch equivalent.
+               the kd-tree prunes the 128-query workload to; the row-major
+               scan at Q = 1): masks exactly equal, aggregates within float32
+               summation tolerance, repeated sums bit-identical; CUDA-event
+               times of the kernel, its plain version and, where one exists,
+               the one-call PyTorch equivalent.
   5. slice   — the main path: ``MDRQEngine.query_batch(method="auto")`` on the
                GMRQB mixed workload at B in {1, 8, 32, 128} under Ids, Count,
                Mask, two TopK and three Agg specs, plus ``engine.query`` singles.
@@ -31,11 +34,29 @@ non-zero without printing a result:
                or filter + 1 fused visit launch + 2 host syncs); every kernel
                of the scan path was launched.
   6. index   — the two-phase paths: ``query_batch(method=m)`` for m in kdtree,
-               rstar, vafile at B in {8, 128} under the same eight specs, and
-               ``engine.query`` singles (ids and Count) on each. The same
-               checks, and every visit and VA-filter kernel was launched.
+               rstar, vafile at B in {8, 128} under the same eight specs (Ids
+               and Mask at B in {8, 32}: they are host-bound, and B=128 would
+               take minutes), and ``engine.query`` singles (ids and Count) on
+               each. The same checks, and every visit and VA-filter kernel was
+               launched.
   7. server  — ``MDRQServer(max_batch=64).serve_all`` on 256 queries under
                Count, against ``query_batch``.
+  8. rowscan — the row-major scan path: ``query_batch(method="rowscan")`` at
+               B = 8 under the eight specs (one ``range_scan_rows`` launch and
+               one host sync per query) and singles; the same checks, and
+               ``range_scan_rows`` was launched.
+  9. delta   — the mutable plane. Through ``MDRQServer.append``/``delete``
+               on the engine under test (a query submitted before and after
+               each call must see exactly the writes before it) and directly
+               on the plain engine: 100,000 fresh GMRQB rows appended (seed 1,
+               1% of the base), then 100,000 base ids and 10,000 of the new
+               ids deleted (numpy seed 1). Every method at B = 128 and the
+               row scan at B = 8, under the eight specs, against the plain
+               engine, 16 queries against numpy over the live rows, each
+               bucket at its frozen budget; warm qps of Count, Agg sum and
+               TopK d3 per path, frozen and under the delta; the tombstone
+               fold's time; ``compact()`` on both engines (id map, version 1,
+               seconds, peak device memory), then the B = 128 checks again.
 
 The last three lines are the kernel table (JSON), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -61,6 +82,12 @@ TILE_N = 1024
 BATCH_SIZES = (1, 8, 32, 128)
 INDEX_METHODS = ("kdtree", "rstar", "vafile")
 INDEX_BATCH_SIZES = (8, 128)
+HOST_BOUND_BATCH_SIZES = (8, 32)   # Ids and Mask on the two-phase paths
+DELTA_METHODS = ("scan", "scan_vertical", "kdtree", "rstar", "vafile", "auto")
+ROWSCAN_BATCH = 8
+DELTA_ROWS = 100_000      # appended: 1% of the base
+DELTA_BASE_DEAD = 100_000
+DELTA_NEW_DEAD = 10_000
 TIMED_CALLS = 3           # warm query_batch calls per qps cell; median kept
 ORACLE_SAMPLE = 16        # queries per (B, spec) checked against numpy
 N_SINGLES = 8             # engine.query singles on the main path
@@ -134,19 +161,29 @@ def same_result(spec, a, b) -> bool:
     return a == b
 
 
-def expected_counts(eng, buckets) -> dict[str, int]:
-    """The budget of one ``query_batch`` over these buckets, as
-    ``ops.counters()`` reports it: a scan bucket is 1 fused launch + 1 host
-    sync; a two-phase bucket is 1 prune (filter) + its survivors' sync, then
-    1 fused visit launch + its payload's sync — unless nothing survived,
-    when the visit launch and its sync are skipped."""
+def expected_counts(eng, buckets, spec, delta: bool) -> dict[str, int]:
+    """The budget of one ``query_batch`` over these buckets ({path: size}),
+    as ``ops.counters()`` reports it — the same with or without a live delta
+    (the delta scan rides each bucket's fused op): a scan bucket is 1 fused
+    launch + 1 host sync; a two-phase bucket is 1 prune (filter) + its
+    survivors' sync, then 1 fused visit launch + its payload's sync — unless
+    nothing survived, when the visit launch and its sync are skipped (under
+    a delta they become one delta-only scan and its sync); the row scan is
+    one ``range_scan_rows`` + 1 host sync per query (+ 1 ``mask_counts``
+    per query for a frozen Count)."""
     scan_ops = {"scan": "multi_scan_reduce",
                 "scan_vertical": "multi_scan_vertical_reduce"}
     want: dict[str, int] = {}
 
-    def add(name):
-        want[name] = want.get(name, 0) + 1
-    for meth in buckets:
+    def add(name, k=1):
+        want[name] = want.get(name, 0) + k
+    for meth, size in buckets.items():
+        if meth == "rowscan":
+            add("range_scan_rows", size)
+            add("host_sync", size)
+            if spec.kind == "count" and not delta:
+                add("mask_counts", size)
+            continue
         add("host_sync")
         if meth in scan_ops:
             add(scan_ops[meth])
@@ -155,16 +192,26 @@ def expected_counts(eng, buckets) -> dict[str, int]:
         if getattr(eng, meth).last_visited_blocks:
             add("multi_visit_reduce")
             add("host_sync")
+        elif delta:
+            add("multi_scan_reduce")
+            add("host_sync")
     return want
 
 
 class Oracle:
     """Numpy ground truth: matching ids per query (cached), and each spec's
     result from them. On the trees, TopK orders equal values by leaf-order
-    position (``inv_perm[id]``), as the reference does; elsewhere by id."""
+    position (``inv_perm[id]``), as the reference does; elsewhere by id.
 
-    def __init__(self, eng, ds, queries):
-        self.cols, self.queries = ds.cols, queries
+    Under a delta, ``cols`` holds the base columns with the delta rows
+    appended, ``alive`` marks the rows not tombstoned and ``n_base`` where
+    the delta starts: a tree's TopK is then the reference's merge — its base
+    top k (leaf-order ties) and the delta's top k (id ties), re-ranked with
+    ties by id."""
+
+    def __init__(self, eng, cols, queries, alive=None, n_base=None):
+        self.cols, self.queries = cols, queries
+        self.alive, self.n_base = alive, n_base
         self._ids: dict[int, np.ndarray] = {}
         self._inv = {}
         for name in ("kdtree", "rstar"):
@@ -174,19 +221,30 @@ class Oracle:
             self._inv[name] = inv
 
     def ids(self, i: int) -> np.ndarray:
-        from repro_torch.core import match_ids_np
+        from repro_torch.core import match_mask_np
         if i not in self._ids:
-            self._ids[i] = match_ids_np(self.cols, self.queries[i])
+            mask = match_mask_np(self.cols, self.queries[i])
+            if self.alive is not None:
+                mask &= self.alive
+            self._ids[i] = np.nonzero(mask)[0].astype(np.int64)
         return self._ids[i]
+
+    def _topk(self, spec, ids, ties):
+        vals = self.cols[spec.dim, ids]
+        order = np.lexsort((ties, -vals if spec.largest else vals))
+        return ids[order[: spec.k]].astype(np.int64)
 
     def result(self, spec, i: int, method: str):
         ids = self.ids(i)
-        if spec.kind == "topk" and method in self._inv:
-            vals = self.cols[spec.dim, ids]
-            order = np.lexsort((self._inv[method][ids],
-                                -vals if spec.largest else vals))
-            return ids[order[: spec.k]].astype(np.int64)
-        return spec.from_ids(ids, self.cols)
+        if spec.kind != "topk" or method not in self._inv:
+            return spec.from_ids(ids, self.cols)
+        inv = self._inv[method]
+        if self.n_base is None:
+            return self._topk(spec, ids, inv[ids])
+        base, new = ids[ids < self.n_base], ids[ids >= self.n_base]
+        cand = np.concatenate([self._topk(spec, base, inv[base]),
+                               self._topk(spec, new, new)])
+        return self._topk(spec, cand, cand)
 
 
 def kernel_phase(eng, queries):
@@ -330,8 +388,36 @@ def kernel_phase(eng, queries):
         time_ms(lambda: ref.range_scan_ref(data[d], plo[d, 0], pup[d, 0])),
         dims.numel() * n_pad * 4 + n_pad + dims.numel() * 12,
         2.0 * dims.numel() * n_pad, None)
+    rows_row(eng, queries, row, got_columnar=range_scan.range_scan_tiles(
+        data, lo1, up1, tile_n=TILE_N))
     visit_rows(eng, full, queries, row)
     return rows
+
+
+def rows_row(eng, queries, row, got_columnar):
+    """Kernel 11: the row-major scan at Q = 1 on the row scan's (10,000,384,
+    24) copy, against its plain version — and against the columnar scan's
+    mask of the same query (same data, other layout)."""
+    from repro_torch.kernels import ops, range_scan, ref
+
+    rs = eng.rowscan
+    data = rs.data_dev
+    n_pad, m_pad = data.shape
+    lo, up = ops.query_bounds_device(queries[0], m_pad, data.dtype, data.device)
+    lo, up = lo.T.contiguous(), up.T.contiguous()
+    got = range_scan.range_scan_rows(data, lo, up, tile_rows=rs.tile_rows)
+    check(torch.equal(got, ref.range_scan_rows_ref(data, lo, up)),
+          "range_scan_rows != plain")
+    check(torch.equal(got, got_columnar),
+          "range_scan_rows != the columnar scan's mask")
+    print(f"  row scan: data {tuple(data.shape)}, query 0 matches "
+          f"{int(got.sum())} rows", flush=True)
+    row("range_scan_rows", "src/repro_torch/kernels/csrc/rows.cu",
+        "src/repro/kernels/range_scan.py:190", 0.0,
+        time_ms(lambda: range_scan.range_scan_rows(data, lo, up,
+                                                   tile_rows=rs.tile_rows)),
+        time_ms(lambda: ref.range_scan_rows_ref(data, lo, up)),
+        n_pad * m_pad * 4 + n_pad + 2 * m_pad * 4, 2.0 * m_pad * n_pad, None)
 
 
 def visit_rows(eng, full, queries, row):
@@ -441,7 +527,8 @@ def result_specs() -> tuple:
             Agg("max", 18))
 
 
-def run_checked(eng, eng_plain, oracle, qs, method, spec, label):
+def run_checked(eng, eng_plain, oracle, qs, method, spec, label,
+                delta=False):
     """One ``query_batch`` under the counters, held against its budget, the
     plain engine and a numpy sample -> (results, method_counts)."""
     from repro_torch.kernels import ops
@@ -449,7 +536,7 @@ def run_checked(eng, eng_plain, oracle, qs, method, spec, label):
     got = eng.query_batch(qs, method=method, spec=spec)
     counts = ops.counters()
     stats = eng.last_batch_stats
-    want_counts = expected_counts(eng, stats.method_counts)
+    want_counts = expected_counts(eng, stats.method_counts, spec, delta)
     check(counts == want_counts,
           f"{label}: counters {counts} != {want_counts}")
     plain = eng_plain.query_batch(qs, method=method, spec=spec)
@@ -516,9 +603,13 @@ def index_phase(eng, eng_plain, oracle, queries):
     from repro_torch.core import Count
 
     for method in INDEX_METHODS:
-        for b in INDEX_BATCH_SIZES:
+        for b in sorted(set(INDEX_BATCH_SIZES) | set(HOST_BOUND_BATCH_SIZES)):
             qs = queries[:b]
             for spec in result_specs():
+                host_bound = spec.kind in ("ids", "mask")
+                if b not in (HOST_BOUND_BATCH_SIZES if host_bound
+                             else INDEX_BATCH_SIZES):
+                    continue
                 run_checked(eng, eng_plain, oracle, qs, method, spec,
                             f"{method} B={b} {spec}")
                 visits = getattr(eng, method).last_visited_blocks
@@ -549,6 +640,171 @@ def server_phase(eng, ds):
           f"methods={st.method_counts}", flush=True)
 
 
+def rowscan_phase(eng, eng_plain, oracle, queries):
+    """The row-major scan path by name, checked like the main path."""
+    from repro_torch.core import Count
+
+    qs = queries[:ROWSCAN_BATCH]
+    for spec in result_specs():
+        run_checked(eng, eng_plain, oracle, qs, "rowscan", spec,
+                    f"rowscan B={ROWSCAN_BATCH} {spec}")
+        qps = warm_qps(eng, qs, "rowscan", spec)
+        print(f"  rowscan B={ROWSCAN_BATCH} {str(spec):<38} warm qps="
+              f"{qps:10.1f}", flush=True)
+    for i in range(N_SINGLES):
+        want = oracle.ids(i)
+        check(np.array_equal(eng.query(queries[i], method="rowscan"), want),
+              f"rowscan single {i}: ids != oracle")
+        check(eng.query(queries[i], method="rowscan", spec=Count())
+              == want.size, f"rowscan single {i}: count != oracle")
+
+
+def qps_specs() -> tuple:
+    """The three specs whose warm qps the delta phase records per path."""
+    from repro_torch.core import Agg, Count, TopK
+    return Count(), Agg("sum", 3), TopK(k=10, dim=3)
+
+
+def path_qps(eng, queries) -> dict:
+    """{(path, spec): warm qps} for every method, B = 128 (rowscan B = 8)."""
+    out = {}
+    for method in (*DELTA_METHODS, "rowscan"):
+        qs = queries[:ROWSCAN_BATCH if method == "rowscan" else 128]
+        for spec in qps_specs():
+            eng.query_batch(qs, method=method, spec=spec)   # warm
+            out[(method, str(spec))] = warm_qps(eng, qs, method, spec)
+    return out
+
+
+def delta_checks(eng, eng_plain, oracle, queries, delta, label):
+    """Every method at B = 128 and the row scan at B = 8, under the eight
+    specs, checked like the main path."""
+    for method in (*DELTA_METHODS, "rowscan"):
+        qs = queries[:ROWSCAN_BATCH if method == "rowscan" else 128]
+        for spec in result_specs():
+            _, buckets = run_checked(eng, eng_plain, oracle, qs, method, spec,
+                                     f"{label} {method} {spec}", delta=delta)
+        print(f"  {label}: {method} B={len(qs)} ok under 8 specs "
+              f"(last buckets {buckets})", flush=True)
+
+
+def fold_time(eng, queries) -> float:
+    """CUDA-event ms of the tombstone fold: the (128, n_pad) scan masks of
+    the workload times the scan's base-tombstone vector. (A function, so
+    no tensor of this version outlives it into the compaction check.)"""
+    from repro_torch.core import QueryBatch
+    from repro_torch.kernels import multi_scan, reducers
+
+    data = eng.columnar.data_dev
+    lo, up = (torch.as_tensor(a, device=data.device) for a in
+              QueryBatch.from_queries(queries[:128]).bounds_columnar(
+                  data.shape[0]))
+    masks = multi_scan.multi_scan_tiles(data, lo, up, tile_n=TILE_N)
+    tomb = eng.delta.snapshot().base_tomb_dev(data.shape[1], data.device)
+    fold_ms = time_ms(lambda: reducers.fold_tombstones(masks, tomb))
+    print(f"  tombstone fold, (128, {data.shape[1]}) int8 masks: "
+          f"{fold_ms:.4f} ms", flush=True)
+    return fold_ms
+
+
+def delta_phase(eng, eng_plain, ds, queries):
+    """Ingest through the server, serve under the delta, compact, serve."""
+    from repro_torch.core import Count, RangeQuery
+    from repro_torch.data import gmrqb
+    from repro_torch.kernels import ops
+    from repro_torch.serve import MDRQServer
+
+    frozen_qps = path_qps(eng, queries)
+    extra = gmrqb.build(DELTA_ROWS, seed=1).rows()
+    rng = np.random.default_rng(1)
+    dead = np.concatenate([
+        rng.choice(N, DELTA_BASE_DEAD, replace=False),
+        N + rng.choice(DELTA_ROWS, DELTA_NEW_DEAD, replace=False)])
+
+    # -- ingest: the server orders writes against the queries around them --
+    srv = MDRQServer(eng, max_batch=64, spec=Count())
+    everything = RangeQuery.partial(ds.m, {})
+    t0 = time.perf_counter()
+    before = srv.submit(everything)
+    new_ids = srv.append(extra)
+    after_append = srv.submit(everything)
+    deleted = srv.delete(dead)
+    after_delete = srv.submit(everything)
+    ingest_s = time.perf_counter() - t0
+    check(np.array_equal(new_ids, N + np.arange(DELTA_ROWS)),
+          "append: unexpected ids")
+    check(deleted == dead.size, f"delete: {deleted} != {dead.size}")
+    live = N + DELTA_ROWS - dead.size
+    counts = [t.result() for t in (before, after_append, after_delete)]
+    check(counts == [N, N + DELTA_ROWS, live],
+          f"server ingest ordering: counts {counts}")
+    check(srv.stats.ingest_counts == {"append": 1, "delete": 1}
+          and srv.stats.flush_reasons.get("ingest") == 2,
+          f"server ingest stats {srv.stats.ingest_counts} "
+          f"{srv.stats.flush_reasons}")
+    check(np.array_equal(eng_plain.append(extra), new_ids),
+          "plain engine: append ids differ")
+    eng_plain.delete(dead)
+    print(f"  ingest through the server: {DELTA_ROWS} rows appended, "
+          f"{dead.size} deleted in {ingest_s:.2f} s; live rows {live}; "
+          f"memory_report delta {eng.memory_report()['delta']} bytes",
+          flush=True)
+
+    alive = np.ones(N + DELTA_ROWS, bool)
+    alive[dead] = False
+    cols = np.concatenate([ds.cols, np.ascontiguousarray(extra.T)], axis=1)
+    oracle = Oracle(eng, cols, queries, alive=alive, n_base=N)
+    ops.reset_kernel_launches()
+    delta_checks(eng, eng_plain, oracle, queries, True, "delta")
+    launches = ops.kernel_launches()
+    print(f"  kernel launches under the delta: {launches}")
+    for name in ("multi_scan_tiles", "multi_scan_vertical", "masked_fill_tiles",
+                 "masked_agg_tiles", "multi_scan_visit",
+                 "multi_va_filter_packed", "range_scan_rows"):
+        check(launches.get(name, 0) > 0,
+              f"kernel {name} was not launched under the delta")
+    delta_qps = path_qps(eng, queries)
+    for key, q_frozen in frozen_qps.items():
+        print(f"  qps {key[0]:<13} {key[1]:<38} frozen {q_frozen:10.1f} "
+              f"delta {delta_qps[key]:10.1f}", flush=True)
+
+    fold_ms = fold_time(eng, queries)
+
+    # -- compaction: both versions on the card until the swap --
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    id_map = srv.compact()
+    compact_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    plain_map = eng_plain.compact()
+    plain_s = time.perf_counter() - t0
+    check(np.array_equal(id_map, plain_map), "compact: id maps differ")
+    check(eng.version == eng_plain.version == 1, "compact: version != 1")
+    check(np.array_equal(np.nonzero(id_map < 0)[0], np.sort(dead)),
+          "compact: -1 not exactly on the deleted ids")
+    check(np.array_equal(id_map[id_map >= 0], np.arange(live)),
+          "compact: live ids not renumbered in order")
+    check(eng.dataset.n == live and eng.delta.d == 0, "compact: sizes")
+    after_bytes = torch.cuda.memory_allocated()
+    check(after_bytes <= before_bytes,
+          f"compact: {after_bytes} bytes allocated after, {before_bytes} "
+          f"before — a replaced version is still on the card")
+    print(f"  compact: {compact_s:.1f} s (engine, through the server), "
+          f"{plain_s:.1f} s (plain engine); build seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in eng.build_seconds.items())
+          + f"; device memory {before_bytes / 1e9:.2f} GB before, peak "
+          f"{peak / 1e9:.2f} GB during, {after_bytes / 1e9:.2f} GB after",
+          flush=True)
+    check(srv.submit(everything).result() == live,
+          "count after compaction != live rows")
+    oracle = Oracle(eng, eng.dataset.cols, queries)
+    delta_checks(eng, eng_plain, oracle, queries, False, "compacted")
+    return fold_ms, compact_s, peak
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -575,10 +831,11 @@ def main() -> int:
 
     with phase("data"):
         ds = gmrqb.build(N, seed=SEED)
-        eng = MDRQEngine(ds, tile_n=TILE_N)
-        eng_plain = MDRQEngine(ds, tile_n=TILE_N, backend="torch")
+        eng = MDRQEngine(ds, tile_n=TILE_N, rowscan=True)
+        eng_plain = MDRQEngine(ds, tile_n=TILE_N, rowscan=True,
+                               backend="torch")
         queries = [q for _, q in gmrqb.mixed_workload(ds, 128, seed=SEED)]
-        oracle = Oracle(eng, ds, queries)
+        oracle = Oracle(eng, ds.cols, queries)
         print(f"  GMRQB n={ds.n} m={ds.m}; device array "
               f"{tuple(eng.columnar.data_dev.shape)} float32 per structure; "
               f"packed VA codes {tuple(eng.vafile.packed_dev.shape)} int32",
@@ -596,7 +853,9 @@ def main() -> int:
     scan_kernels = [r for r in rows if r["name"] in (
         "multi_scan_tiles", "multi_scan_vertical", "masked_fill_tiles",
         "masked_agg_tiles", "range_scan_tiles", "range_scan_vertical")]
-    index_kernels = [r for r in rows if r not in scan_kernels]
+    rowscan_kernels = [r for r in rows if r["name"] == "range_scan_rows"]
+    index_kernels = [r for r in rows
+                     if r not in scan_kernels and r not in rowscan_kernels]
 
     def read_launches(kernels, path):
         launches = ops.kernel_launches()
@@ -619,6 +878,14 @@ def main() -> int:
 
     with phase("server"):
         server_phase(eng, ds)
+
+    with phase("rowscan"):
+        ops.reset_kernel_launches()
+        rowscan_phase(eng, eng_plain, oracle, queries)
+        read_launches(rowscan_kernels, "row-scan path")
+
+    with phase("delta"):
+        delta_phase(eng, eng_plain, ds, queries)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -10,3 +10,8 @@ CUDA kernels (built from ``kernels/csrc`` at first use); on a CPU tensor they
 run the plain PyTorch versions in ``kernels/ref.py``. The plain versions run on
 CUDA only when asked for with ``backend="torch"``.
 """
+from repro_torch.core import (Compactor, DeltaHostCtx, DeltaView, MDRQEngine,
+                              MutableDelta, RowScan, build_row_scan)
+
+__all__ = ["MDRQEngine", "RowScan", "build_row_scan", "MutableDelta",
+           "DeltaView", "Compactor", "DeltaHostCtx"]

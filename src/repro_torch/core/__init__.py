@@ -1,22 +1,27 @@
-"""repro_torch.core — the MDRQ engine on a frozen dataset, in PyTorch.
+"""repro_torch.core — the MDRQ engine in PyTorch, with its mutable plane.
 
 Public API:
   * types: ``RangeQuery``, ``QueryBatch``, ``Dataset`` + numpy oracles
   * result specs: ``Ids``, ``Count``, ``Mask``, ``TopK``, ``Agg``
-  * structures: ``build_columnar_scan``, ``build_kdtree``, ``build_rstar``,
-    ``build_vafile`` (``BlockedIndex``, ``VAFile``)
+  * structures: ``build_columnar_scan``, ``build_row_scan`` (``RowScan``),
+    ``build_kdtree``, ``build_rstar``, ``build_vafile`` (``BlockedIndex``,
+    ``VAFile``)
+  * mutable plane: ``MutableDelta``, ``DeltaView``, ``Compactor``,
+    ``DeltaHostCtx``
   * engine: ``MDRQEngine`` (the access-path registry), ``engine_from_arrays``
   * access-path layer: ``AccessPath`` protocol + adapters (``core.paths``)
   * planning: ``Planner``, ``Histograms``, ``CostModel``, ``BatchPlan``
 """
-from repro_torch.core.types import (Agg, Count, Dataset, Ids, Mask,
-                                    QueryBatch, RangeQuery, ResultSpec, TopK,
+from repro_torch.core.types import (Agg, Count, Dataset, DeltaHostCtx, Ids,
+                                    Mask, QueryBatch, RangeQuery, ResultSpec,
+                                    TopK,
                                     match_ids_np, match_mask_np,
                                     register_result_spec, resolve_spec)
 from repro_torch.core.engine import BatchStats, MDRQEngine, PendingBatch
 from repro_torch.core.paths import (AccessPath, BlockedIndexPath,
                                     PerQueryPath, PlanInputs, VAFilePath)
-from repro_torch.core.scan import build_columnar_scan
+from repro_torch.core.scan import RowScan, build_columnar_scan, build_row_scan
+from repro_torch.core.delta import Compactor, DeltaView, MutableDelta
 from repro_torch.core.blockindex import BlockedIndex
 from repro_torch.core.kdtree import build_kdtree
 from repro_torch.core.rstar import build_rstar
@@ -33,7 +38,8 @@ __all__ = [
     "MDRQEngine", "BatchStats", "PendingBatch", "engine_from_arrays",
     "AccessPath", "PerQueryPath", "PlanInputs", "BlockedIndexPath",
     "VAFilePath", "build_columnar_scan", "build_kdtree", "build_rstar",
-    "build_vafile", "BlockedIndex", "VAFile",
+    "build_vafile", "BlockedIndex", "VAFile", "RowScan", "build_row_scan",
+    "MutableDelta", "DeltaView", "Compactor", "DeltaHostCtx",
     "BatchPlan", "CalibrationFit", "CalibrationReport", "CostModel",
     "Histograms", "Planner",
 ]

@@ -137,13 +137,18 @@ def reduce_visits_batch(data_dev: torch.Tensor, query_ids: np.ndarray,
                         block_ids: np.ndarray, batch: T.QueryBatch,
                         tile_n: int, n_queries: int, spec: T.ResultSpec,
                         n: int, perm: np.ndarray | None = None,
-                        backend: str = "auto") -> list:
+                        backend: str = "auto", delta=None) -> list:
     """Phase 2 of every batched two-phase path, under any ResultSpec: one
     ``ops.multi_visit_reduce`` launch, one host sync of its payload, then
-    the spec's visit finalizer."""
+    the spec's visit finalizer.
+
+    ``delta`` (a ``core.delta.DeltaView``) rides the same op: base
+    tombstones gather per visited block and fold into the visit masks, the
+    delta block scans with the batch's bounds, and the spec merges the
+    halves."""
     payload, fin = launch_visits_batch(data_dev, query_ids, block_ids, batch,
                                        tile_n, n_queries, spec, n, perm=perm,
-                                       backend=backend)
+                                       backend=backend, delta=delta)
     return fin(ops.device_get(payload) if payload is not None else None)
 
 
@@ -151,18 +156,37 @@ def launch_visits_batch(data_dev: torch.Tensor, query_ids: np.ndarray,
                         block_ids: np.ndarray, batch: T.QueryBatch,
                         tile_n: int, n_queries: int, spec: T.ResultSpec,
                         n: int, perm: np.ndarray | None = None,
-                        backend: str = "auto") -> tuple:
+                        backend: str = "auto", delta=None) -> tuple:
     """Device half of ``reduce_visits_batch``: one launch, no host sync.
 
     Returns ``(payload, finalize)``; the caller owns the single counted
     ``ops.device_get(payload)`` and hands its host value to ``finalize``.
     ``payload`` is ``None`` (the host value ignored) when nothing pruned
-    through — that corner has no device work at all.
+    through on a frozen dataset — that corner has no device work at all.
     """
+    dev = data_dev.device
+    dview = delta if delta is not None and not delta.is_empty else None
+    dcm = dview.device_cm(tile_n, dev) if dview is not None else None
     if query_ids.size == 0:
         base = [spec.empty_result(n) for _ in range(n_queries)]
-        return None, lambda _host: base
-    dev = data_dev.device
+        if dcm is None:
+            return None, lambda _host: base
+        # Nothing pruned through, but the delta still has to be scanned:
+        # this corner pays one delta-only launch (none on a frozen dataset).
+        lo_d, up_d = ops.batch_bounds_device(batch, dcm.shape[0], dcm.dtype,
+                                             dev, q_pad=_next_pow2(len(batch)))
+        payload = ops.multi_scan_reduce(dcm, lo_d, up_d, spec=spec,
+                                        tile_n=tile_n, backend=backend)
+        merge = dview.merge_finalizer(spec, lambda _host: base, n_queries)
+        return payload, lambda host_payload: merge((None, host_payload))
+    tomb = None
+    if dview is not None:
+        # Tombstones in the structure's storage order: the trees' permuted
+        # leaf order (one cached vector per permutation), the VA-file's
+        # storage order (shared with the scan's).
+        key = None if perm is None else ("perm", id(perm),
+                                         int(data_dev.shape[1]))
+        tomb = dview.base_tomb_dev(data_dev.shape[1], dev, perm=perm, key=key)
     qids_p, bids_p = _pad_visit_list(query_ids, block_ids)
     q_bucket = _next_pow2(max(n_queries, 1))  # pow2 bounds launch shapes
     # The per-query visit-index table only feeds the reducers that gather by
@@ -179,7 +203,7 @@ def launch_visits_batch(data_dev: torch.Tensor, query_ids: np.ndarray,
         data_dev, torch.as_tensor(qids_p, device=dev),
         torch.as_tensor(bids_p, device=dev),
         torch.as_tensor((bids_p >= 0).astype(np.int32), device=dev),
-        torch.as_tensor(visit_index, device=dev), lo_d, up_d,
+        torch.as_tensor(visit_index, device=dev), lo_d, up_d, dcm, tomb,
         spec=spec, tile_n=tile_n, n_queries=q_bucket, backend=backend)
     vctx = T.VisitHostCtx(
         qids=query_ids.astype(np.int32), bids=block_ids.astype(np.int32),
@@ -187,7 +211,9 @@ def launch_visits_batch(data_dev: torch.Tensor, query_ids: np.ndarray,
 
     def finalize(host_payload):
         return spec.finalize_visits(host_payload, vctx)
-    return payload, finalize
+    if dcm is None:
+        return payload, finalize
+    return payload, dview.merge_finalizer(spec, finalize, n_queries)
 
 
 def scatter_visit_results(
@@ -307,14 +333,15 @@ class BlockedIndex:
         return int(ops.device_get(masks.ne(0).sum()))
 
     def launch_batch(self, batch: T.QueryBatch,
-                     spec: T.ResultSpec = T.IDS) -> tuple:
+                     spec: T.ResultSpec = T.IDS, delta=None) -> tuple:
         """Device half of the batched two-phase query -> (payload, finalize).
 
         The prune is a mid-stage sync (the surviving (query, block) pairs
         decide the visit launch's shapes), so it runs here along with the
         fused visit launch; ``finalize`` defers the payload sync and the
         spec's host finalizer to the caller. ``payload`` is None when nothing
-        pruned through.
+        pruned through on a frozen dataset. ``delta`` rides the visit op
+        (see ``launch_visits_batch``).
         """
         spec = T.resolve_spec(spec).validate(self.m)
         q_n = len(batch)
@@ -330,14 +357,14 @@ class BlockedIndex:
         return launch_visits_batch(
             self.data_dev, qids.astype(np.int32), bids.astype(np.int32),
             batch, self.tile_n, q_n, spec, self.n, perm=self.perm,
-            backend=self.backend)
+            backend=self.backend, delta=delta)
 
     def query_batch(self, batch: T.QueryBatch,
-                    spec: T.ResultSpec = T.IDS) -> list:
+                    spec: T.ResultSpec = T.IDS, delta=None) -> list:
         """Batched two-phase query: one counted prune (+ its survivor-mask
         sync) + one fused visit launch (+ its payload sync). Positions map
         through ``perm`` in the spec's finalizer."""
-        payload, fin = self.launch_batch(batch, spec=spec)
+        payload, fin = self.launch_batch(batch, spec=spec, delta=delta)
         return fin(ops.device_get(payload) if payload is not None else None)
 
 

@@ -74,6 +74,25 @@ def takes_spec(method) -> bool:
     return _fn_takes_spec(getattr(method, "__func__", method))
 
 
+@functools.lru_cache(maxsize=None)
+def _fn_takes_delta(fn) -> bool:
+    try:
+        params = inspect.signature(fn).parameters
+    except (TypeError, ValueError):  # builtins / C callables
+        return False
+    return "delta" in params or any(p.kind == p.VAR_KEYWORD
+                                    for p in params.values())
+
+
+def takes_delta(method) -> bool:
+    """Whether a path's ``query_batch`` (or ``launch_batch``) accepts the
+    ``delta`` argument of the versioned-dataset protocol (a
+    ``core.delta.DeltaView``). The engine hands a non-empty delta only to
+    paths that declare it; others raise a "compact() first" error instead of
+    serving stale results. Cached like ``takes_spec``."""
+    return _fn_takes_delta(getattr(method, "__func__", method))
+
+
 # Per-query results under some ResultSpec: id arrays (Ids/TopK), ints
 # (Count), bool masks (Mask), or floats (Agg).
 Results = Union["list[np.ndarray]", "list[int]", "list[float]"]
@@ -207,16 +226,16 @@ class ColumnarScanPath(ScanCost):
         return self._scan.count(q)
 
     def query_batch(self, batch: T.QueryBatch,
-                    spec: T.ResultSpec = T.IDS) -> Results:
+                    spec: T.ResultSpec = T.IDS, delta=None) -> Results:
         with _path_span(self, batch, spec) as sp:
-            out = self._scan.query_batch(batch, spec=spec)
+            out = self._scan.query_batch(batch, spec=spec, delta=delta)
             sp.block_on(out)
         return out
 
     def launch_batch(self, batch: T.QueryBatch,
-                     spec: T.ResultSpec = T.IDS) -> tuple:
+                     spec: T.ResultSpec = T.IDS, delta=None) -> tuple:
         with _path_span(self, batch, spec, stage="launch"):
-            return self._scan.launch_batch(batch, spec=spec)
+            return self._scan.launch_batch(batch, spec=spec, delta=delta)
 
 
 class VerticalScanPath(VerticalScanCost):
@@ -241,17 +260,18 @@ class VerticalScanPath(VerticalScanCost):
         return self._scan_ref().count_partial(q)
 
     def query_batch(self, batch: T.QueryBatch,
-                    spec: T.ResultSpec = T.IDS) -> Results:
+                    spec: T.ResultSpec = T.IDS, delta=None) -> Results:
         with _path_span(self, batch, spec) as sp:
-            out = self._scan_ref().query_batch(batch, partial=True, spec=spec)
+            out = self._scan_ref().query_batch(batch, partial=True, spec=spec,
+                                               delta=delta)
             sp.block_on(out)
         return out
 
     def launch_batch(self, batch: T.QueryBatch,
-                     spec: T.ResultSpec = T.IDS) -> tuple:
+                     spec: T.ResultSpec = T.IDS, delta=None) -> tuple:
         with _path_span(self, batch, spec, stage="launch"):
             return self._scan_ref().launch_batch(batch, partial=True,
-                                                 spec=spec)
+                                                 spec=spec, delta=delta)
 
 
 # -- adapters over the two-phase indexes --------------------------------------
@@ -277,16 +297,16 @@ class BlockedIndexPath(TreeCost):
         return self._index.count(q)
 
     def query_batch(self, batch: T.QueryBatch,
-                    spec: T.ResultSpec = T.IDS) -> Results:
+                    spec: T.ResultSpec = T.IDS, delta=None) -> Results:
         with _path_span(self, batch, spec) as sp:
-            out = self._index.query_batch(batch, spec=spec)
+            out = self._index.query_batch(batch, spec=spec, delta=delta)
             sp.block_on(out)
         return out
 
     def launch_batch(self, batch: T.QueryBatch,
-                     spec: T.ResultSpec = T.IDS) -> tuple:
+                     spec: T.ResultSpec = T.IDS, delta=None) -> tuple:
         with _path_span(self, batch, spec, stage="launch"):
-            return self._index.launch_batch(batch, spec=spec)
+            return self._index.launch_batch(batch, spec=spec, delta=delta)
 
 
 class VAFilePath(VAFileCost):
@@ -311,24 +331,24 @@ class VAFilePath(VAFileCost):
         return self._vafile.count(q)
 
     def query_batch(self, batch: T.QueryBatch,
-                    spec: T.ResultSpec = T.IDS) -> Results:
+                    spec: T.ResultSpec = T.IDS, delta=None) -> Results:
         with _path_span(self, batch, spec) as sp:
-            out = self._vafile.query_batch(batch, spec=spec)
+            out = self._vafile.query_batch(batch, spec=spec, delta=delta)
             sp.block_on(out)
         return out
 
     def launch_batch(self, batch: T.QueryBatch,
-                     spec: T.ResultSpec = T.IDS) -> tuple:
+                     spec: T.ResultSpec = T.IDS, delta=None) -> tuple:
         with _path_span(self, batch, spec, stage="launch"):
-            return self._vafile.launch_batch(batch, spec=spec)
+            return self._vafile.launch_batch(batch, spec=spec, delta=delta)
 
 
 class PerQueryPath:
     """Generic adapter: any object with single-query ``query``/``count``
     becomes a full ``AccessPath`` whose batch execution is a per-query loop.
 
-    Structures without a fused batch kernel (prototypes, test doubles) still
-    ride the registry, paying Q launches instead of one. Reduced result
+    Structures without a fused batch kernel (``RowScan``, prototypes, test
+    doubles) still ride the registry, paying Q launches instead of one. Reduced result
     shapes ride the spec's *host* fallback: ids materialize per query and
     ``ResultSpec.from_ids`` finalizes against the host columns (pass ``cols``
     to enable — specs that read attribute values need it). Not plannable by
@@ -355,9 +375,11 @@ class PerQueryPath:
         return self._impl.count(q)
 
     def query_batch(self, batch: T.QueryBatch,
-                    spec: T.ResultSpec = T.IDS) -> Results:
+                    spec: T.ResultSpec = T.IDS, delta=None) -> Results:
         spec = T.resolve_spec(spec)
         with _path_span(self, batch, spec):
+            if delta is not None and not delta.is_empty:
+                return self._query_batch_delta(batch, spec, delta)
             if spec.kind == "ids":
                 return [self.query(batch[k]) for k in range(len(batch))]
             if spec.kind == "count":
@@ -368,6 +390,23 @@ class PerQueryPath:
                     f"{spec.kind!r}; construct PerQueryPath(..., cols=...)")
             return [spec.from_ids(self.query(batch[k]), self._cols)
                     for k in range(len(batch))]
+
+    def _query_batch_delta(self, batch: T.QueryBatch, spec: T.ResultSpec,
+                           delta) -> Results:
+        # Host-side delta merge: the wrapped singles see only the frozen
+        # base, so per query drop base tombstones, append the delta's host
+        # match, and finalize every spec from ids against the combined
+        # columns (this rung already pays Q host round trips).
+        cols = delta.combined_cols()
+        out = []
+        for k in range(len(batch)):
+            q = batch[k]
+            ids = np.asarray(self.query(q), np.int64)
+            if delta.has_base_tombs:
+                ids = ids[~delta.base_tomb[ids]]
+            ids = np.concatenate([ids, delta.match_delta_ids(q)])
+            out.append(ids if spec.kind == "ids" else spec.from_ids(ids, cols))
+        return out
 
     # A plannable=False path is never priced; keep the protocol total anyway.
     def cost(self, q: T.RangeQuery, sel: float, batch: int, model,

@@ -1,17 +1,22 @@
-"""Columnar scans (the paper's §3 / §5.4 / §5.5 contestants, on the card).
+"""Scans (the paper's §3 / §5.4 / §5.5 contestants, on the card).
 
   * ``ColumnarScan.query``          — complete-match scan over the columnar
     layout through the ``range_scan`` op (all dims fused).
   * ``ColumnarScan.query_partial``  — partial-match scan through
     ``range_scan_vertical``: touches only queried dimensions' rows (the
     paper's vertical-partitioning advantage, §5.5).
+  * ``RowScan.query``               — row-major layout scan through
+    ``range_scan_rows`` (the paper's horizontal partitioning, §5.4), one
+    query per launch; the engine serves it behind ``PerQueryPath``.
 
 Batched execution: ``query_batch`` / ``launch_batch`` evaluate a whole
 ``QueryBatch`` through one fused multi-query launch that carries the
 ``ResultSpec``'s on-device reducer (``ops.multi_scan_reduce`` /
 ``multi_scan_vertical_reduce``), with the query axis padded to a pow2 bucket
 so arbitrary batch sizes hit a bounded set of launch shapes. The payload
-crosses in one host sync.
+crosses in one host sync. A ``delta`` (``core.delta.DeltaView``) rides the
+same op: base tombstones fold into the masks on the device, the delta block
+scans with the same bounds, and the spec merges the two finalized halves.
 """
 from __future__ import annotations
 
@@ -104,42 +109,50 @@ class ColumnarScan:
 
     # -- batched execution (fused multi-query kernels) ---------------------
     def query_batch(self, batch: T.QueryBatch, partial: bool = False,
-                    spec: T.ResultSpec = T.IDS) -> list:
+                    spec: T.ResultSpec = T.IDS, delta=None) -> list:
         """Batched execution under any ResultSpec: the fused multi-query
         kernel and the spec's on-device reducer run as one launch, the
         payload crosses in one host sync, and the spec's host finalizer
-        types the per-query results."""
-        payload, fin = self.launch_batch(batch, partial=partial, spec=spec)
+        types the per-query results. ``delta`` folds the mutable plane into
+        the same op (see the module docstring)."""
+        payload, fin = self.launch_batch(batch, partial=partial, spec=spec,
+                                         delta=delta)
         return fin(ops.device_get(payload))
 
     def launch_batch(self, batch: T.QueryBatch, partial: bool = False,
-                     spec: T.ResultSpec = T.IDS):
+                     spec: T.ResultSpec = T.IDS, delta=None):
         """Device half of ``query_batch``: issue the one fused launch and
         return ``(payload, finalize)`` without synchronizing.
 
         ``finalize(host_payload)`` — where ``host_payload`` is the caller's
         single counted ``ops.device_get(payload)`` — runs the spec's host
-        finalizer.
+        finalizer (and, under a delta, the spec's merge).
         """
         spec = T.resolve_spec(spec).validate(self.m)
         dev = self.data_dev.device
         q_pad, lo, up = bucketed_batch_bounds(batch, self.m_pad,
                                               self.data_dev.dtype, dev)
+        dcm = tomb = None
+        if delta is not None and not delta.is_empty:
+            dcm = delta.device_cm(self.tile_n, dev)
+            tomb = delta.base_tomb_dev(self.data_dev.shape[1], dev)
         if partial:
             dim_ids = ops.dim_ids_device(batch.padded_dim_ids(q_pad),
                                          self.m_pad, dev)
             payload = ops.multi_scan_vertical_reduce(
-                self.data_dev, dim_ids, lo, up, spec=spec, tile_n=self.tile_n,
-                backend=self.backend)
+                self.data_dev, dim_ids, lo, up, dcm, tomb, spec=spec,
+                tile_n=self.tile_n, backend=self.backend)
         else:
-            payload = ops.multi_scan_reduce(self.data_dev, lo, up, spec=spec,
-                                            tile_n=self.tile_n,
+            payload = ops.multi_scan_reduce(self.data_dev, lo, up, dcm, tomb,
+                                            spec=spec, tile_n=self.tile_n,
                                             backend=self.backend)
         n_q, n = len(batch), self.n
 
         def finalize(host_payload):
             return spec.finalize(host_payload, n_q, n)
-        return payload, finalize
+        if dcm is None:
+            return payload, finalize
+        return payload, delta.merge_finalizer(spec, finalize, n_q)
 
 
 def build_columnar_scan(dataset: T.Dataset, tile_n: int = 1024, *,
@@ -149,3 +162,50 @@ def build_columnar_scan(dataset: T.Dataset, tile_n: int = 1024, *,
     return ColumnarScan(data_dev=torch.as_tensor(padded, device=device),
                         m=m, n=n, tile_n=tile_n,
                         backend=ops.check_backend(backend))
+
+
+@dataclasses.dataclass
+class RowScan:
+    """Row-major layout scan (the paper's horizontal partitioning, §5.4)."""
+
+    data_dev: torch.Tensor  # (n_pad, m_pad)
+    m: int
+    n: int
+    tile_rows: int = 512
+    backend: str = "auto"
+
+    @property
+    def nbytes_index(self) -> int:
+        return 0
+
+    def _mask_device(self, q: T.RangeQuery) -> torch.Tensor:
+        qlo, qhi = ops.query_bounds_device(q, self.data_dev.shape[1],
+                                           self.data_dev.dtype,
+                                           self.data_dev.device)
+        return ops.range_scan_rows(self.data_dev, qlo.T, qhi.T,
+                                   tile_rows=self.tile_rows,
+                                   backend=self.backend)
+
+    def mask(self, q: T.RangeQuery) -> np.ndarray:
+        return ops.device_get(self._mask_device(q))[: self.n] > 0
+
+    def query(self, q: T.RangeQuery) -> np.ndarray:
+        return np.nonzero(self.mask(q))[0].astype(np.int64)
+
+    def count(self, q: T.RangeQuery) -> int:
+        """Match count summed on the device (+inf padding rows never
+        match)."""
+        return int(ops.device_get(ops.mask_counts(self._mask_device(q))))
+
+
+def build_row_scan(dataset: T.Dataset, tile_rows: int = 512, *, device,
+                   backend: str = "auto") -> RowScan:
+    """Pad ``dataset``'s rows (dims to 8 with 0.0 under match-all bounds,
+    rows to ``tile_rows`` with +inf) and place them on ``device``."""
+    rows = dataset.rows()  # (n, m)
+    rows = T.pad_axis(rows, 1, 8, 0.0)
+    rows = T.pad_axis(rows, 0, tile_rows, np.inf)
+    return RowScan(data_dev=torch.as_tensor(np.ascontiguousarray(rows),
+                                            device=device),
+                   m=dataset.m, n=dataset.n, tile_rows=tile_rows,
+                   backend=ops.check_backend(backend))

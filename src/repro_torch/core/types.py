@@ -116,6 +116,22 @@ class ResultSpec:
         """
         raise NotImplementedError
 
+    # -- delta merge (the mutable data plane) --------------------------------
+    def merge_delta(self, base_results: list, delta_results: list,
+                    dctx: "DeltaHostCtx") -> list:
+        """Fold per-query delta results into the base results.
+
+        Under a non-empty delta the fused ops evaluate base and delta in one
+        counted op and return two payloads; both finalize with the spec's
+        ordinary host finalizer (the delta side in *local* delta
+        coordinates, objects ``[0, d)``), and this hook combines them into
+        one answer per query. A spec without it cannot serve a mutated
+        engine — ``compact()`` first.
+        """
+        raise NotImplementedError(
+            f"result spec {self.kind!r} does not implement merge_delta; "
+            f"compact() the engine before querying with it")
+
     # -- misc ---------------------------------------------------------------
     def empty_result(self, n: int):
         """The result of a query with an empty candidate set."""
@@ -145,6 +161,12 @@ class Ids(ResultSpec):
 
     def from_ids(self, ids, cols):
         return ids
+
+    def merge_delta(self, base_results, delta_results, dctx):
+        # Delta ids are all >= n (append order), so concatenation keeps the
+        # per-query id arrays sorted.
+        return [np.concatenate([b, dctx.delta_ids[np.asarray(d, np.int64)]])
+                for b, d in zip(base_results, delta_results)]
 
     def host_bytes(self, touched, n):
         # the mask readback plus the host-side nonzero sweep over it
@@ -183,6 +205,16 @@ class Mask(ResultSpec):
         m[ids] = True
         return m
 
+    def merge_delta(self, base_results, delta_results, dctx):
+        # The merged mask covers the combined id space [0, n + d).
+        out = []
+        for b, d in zip(base_results, delta_results):
+            m = np.zeros((dctx.n + dctx.delta_ids.size,), bool)
+            m[: dctx.n] = b
+            m[dctx.n:] = d
+            out.append(m)
+        return out
+
     def host_bytes(self, touched, n):
         return touched + float(n)
 
@@ -213,6 +245,9 @@ class Count(ResultSpec):
 
     def from_ids(self, ids, cols):
         return int(ids.size)
+
+    def merge_delta(self, base_results, delta_results, dctx):
+        return [int(b) + int(d) for b, d in zip(base_results, delta_results)]
 
     def host_bytes(self, touched, n):
         return 4.0 * np.ones_like(np.asarray(touched, np.float64))
@@ -288,6 +323,27 @@ class TopK(ResultSpec):
         order = np.argsort(-vals if self.largest else vals, kind="stable")
         return ids[order[: self.k]].astype(np.int64)
 
+    def merge_delta(self, base_results, delta_results, dctx):
+        # Exact: top-k of (base ∪ delta) ⊆ (top-k of base) ∪ (top-k of
+        # delta), so re-ranking the <= 2k candidates by a host value gather
+        # gives the answer. Ties order by ascending id, so a delta id
+        # (n + j) follows every base id of equal value — as the reference
+        # merges.
+        out = []
+        for b, d in zip(base_results, delta_results):
+            cand = np.concatenate([np.asarray(b, np.int64),
+                                   dctx.delta_ids[np.asarray(d, np.int64)]])
+            if cand.size == 0:
+                out.append(cand)
+                continue
+            vals = np.where(
+                cand < dctx.n,
+                dctx.base_cols[self.dim, np.minimum(cand, dctx.n - 1)],
+                dctx.delta_rows[np.maximum(cand - dctx.n, 0), self.dim])
+            order = np.lexsort((cand, -vals if self.largest else vals))
+            out.append(cand[order[: self.k]].astype(np.int64))
+        return out
+
     def host_bytes(self, touched, n):
         return (12.0 * self.k + 4.0) \
             * np.ones_like(np.asarray(touched, np.float64))
@@ -357,6 +413,22 @@ class Agg(ResultSpec):
             return float(np.sum(vals, dtype=np.float32))
         return float({"min": np.min, "max": np.max}[self.op](vals))
 
+    def merge_delta(self, base_results, delta_results, dctx):
+        # NaN marks an empty match set on min/max (the finalizer's empty
+        # sentinel), so the combine is NaN-aware; sums add directly (an
+        # empty side contributes the 0.0 identity).
+        out = []
+        for b, d in zip(base_results, delta_results):
+            if self.op == "sum":
+                out.append(float(b) + float(d))
+            elif np.isnan(b):
+                out.append(float(d))
+            elif np.isnan(d):
+                out.append(float(b))
+            else:
+                out.append(float({"min": min, "max": max}[self.op](b, d)))
+        return out
+
     def host_bytes(self, touched, n):
         return 12.0 * np.ones_like(np.asarray(touched, np.float64))
 
@@ -383,6 +455,19 @@ class VisitHostCtx:
     n: int                      # logical object count
     n_queries: int
     perm: Optional[np.ndarray]  # position -> original id (None = identity)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaHostCtx:
+    """Host-side context ``ResultSpec.merge_delta`` needs to fold per-query
+    delta results (local delta coordinates) into base results (original
+    ids). Built by ``core.delta.DeltaView.host_ctx``; the value arrays back
+    the TopK re-rank's host gather."""
+
+    n: int                      # base object count — delta ids start here
+    delta_ids: np.ndarray       # (d,) int64 global ids of the delta rows
+    base_cols: np.ndarray       # (m, n) base columns
+    delta_rows: np.ndarray      # (d, m) delta rows
 
 
 def resolve_spec(spec: Optional[ResultSpec] = None) -> ResultSpec:
@@ -531,7 +616,9 @@ class QueryBatch:
 
 @dataclasses.dataclass
 class Dataset:
-    """A columnar in-memory dataset: ``cols[j, i]`` = attribute j of object i."""
+    """A columnar in-memory dataset: ``cols[j, i]`` = attribute j of object i.
+
+    ``rows()`` gives the row-major view (the paper's horizontal layout)."""
 
     cols: np.ndarray  # (m, n) float32
 
@@ -552,6 +639,10 @@ class Dataset:
     @property
     def nbytes(self) -> int:
         return self.cols.nbytes
+
+    def rows(self) -> np.ndarray:
+        """(n, m) row-major copy of the data."""
+        return np.ascontiguousarray(self.cols.T)
 
 
 def match_mask_np(cols: np.ndarray, q: RangeQuery) -> np.ndarray:

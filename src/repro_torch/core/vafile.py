@@ -167,21 +167,23 @@ class VAFile:
         return qids.astype(np.int32), bids.astype(np.int32)
 
     def query_batch(self, batch: T.QueryBatch,
-                    spec: T.ResultSpec = T.IDS) -> list:
+                    spec: T.ResultSpec = T.IDS, delta=None) -> list:
         """Batched two-phase query: one filter op (+ its survivor-bits sync)
         and one ``multi_visit_reduce`` carrying the ResultSpec's reducer
         (+ its payload sync)."""
-        payload, fin = self.launch_batch(batch, spec=spec)
+        payload, fin = self.launch_batch(batch, spec=spec, delta=delta)
         return fin(ops.device_get(payload) if payload is not None else None)
 
     def launch_batch(self, batch: T.QueryBatch,
-                     spec: T.ResultSpec = T.IDS) -> tuple:
+                     spec: T.ResultSpec = T.IDS, delta=None) -> tuple:
         """Device half of the batched two-phase query -> (payload, finalize).
 
         Phase 1 (the packed filter + its survivor-bits sync — a
         shape-deciding mid-stage sync, like the trees' prune) and the fused
         visit launch run here; ``finalize`` defers the payload sync and host
-        finalizer to the caller. ``payload`` is None when no block survived.
+        finalizer to the caller. ``payload`` is None when no block survived
+        on a frozen dataset. The VA-file keeps storage order, so under a
+        ``delta`` it shares the scan's base-tombstone vector.
         """
         from repro_torch.core.blockindex import launch_visits_batch
 
@@ -191,7 +193,7 @@ class VAFile:
         self.last_visited_blocks = int(qids.size)
         return launch_visits_batch(
             self.data_dev, qids, bids, batch, self.tile_n, q_n, spec,
-            self.n, perm=None, backend=self.backend,
+            self.n, perm=None, backend=self.backend, delta=delta,
         )
 
 

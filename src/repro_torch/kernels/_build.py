@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-SOURCES = ("scan.cu", "reducers.cu", "visit.cu", "va_filter.cu")
+SOURCES = ("scan.cu", "reducers.cu", "visit.cu", "va_filter.cu", "rows.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +44,7 @@ _SIGNATURES = {
     "mdrq_multi_scan_visit": (_P, _LL, _I, _P, _P, _LL, _P, _P, _I, _I, _P,
                               _I, _P),
     "mdrq_multi_va_filter": (_P, _LL, _I, _I, _P, _P, _I, _P, _I, _I, _P),
+    "mdrq_range_scan_rows": (_P, _LL, _I, _P, _P, _P, _I, _P),
 }
 
 # Kernel launches per wrapper name since the last ``reset_launches``.

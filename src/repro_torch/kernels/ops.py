@@ -27,6 +27,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import multi_scan as _ms
 from repro_torch.kernels import range_scan as _rs
+from repro_torch.kernels import reducers as _red
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import va_filter as _va
 from repro_torch.obs import metrics as _obs_metrics
@@ -87,13 +88,18 @@ def reset_kernel_launches() -> None:
 def device_get(x):
     """Counted device->host transfer — the host-sync tax the cost model prices.
 
-    Accepts a single tensor or a payload tuple/list (the ResultSpec reducers
-    return e.g. ``(values, indices, counts)``); either way it is one logical
-    synchronization, counted once. Returns numpy arrays.
+    Accepts a single tensor or a payload tuple/list, nested (the ResultSpec
+    reducers return e.g. ``(values, indices, counts)``, and under a delta the
+    pair ``(base_payload, delta_payload)``); either way it is one logical
+    synchronization, counted once. Returns numpy arrays in the same nesting.
     """
     _bump("host_sync")
+    return _to_host(x)
+
+
+def _to_host(x):
     if isinstance(x, (tuple, list)):
-        return tuple(t.cpu().numpy() for t in x)
+        return tuple(_to_host(t) for t in x)
     return x.cpu().numpy()
 
 
@@ -228,6 +234,18 @@ multi_range_scan_vertical = counted(
 )(_vertical_masks)
 
 
+def _range_scan_rows(data_rm, lower, upper, *, tile_rows=512, backend="auto"):
+    if check_backend(backend) == "torch":
+        return _ref.range_scan_rows_ref(data_rm, lower, upper)
+    return _rs.range_scan_rows(data_rm, lower, upper, tile_rows=tile_rows)
+
+
+range_scan_rows = counted(
+    "range_scan_rows",
+    "Row-major (horizontal layout) scan -> (n_pad,) int8.",
+)(_range_scan_rows)
+
+
 def _visit_masks(data_cm, query_ids, block_ids, lower, upper, *,
                  tile_n=_rs.DEFAULT_TILE_N, backend="auto"):
     if check_backend(backend) == "torch":
@@ -302,11 +320,42 @@ multi_va_filter = counted(
 # fused launch and, with the single ``device_get`` of the payload, one host
 # sync per batch. The identity specs (Ids/Mask) flow through unchanged: their
 # "payload" is the mask itself.
+#
+# The mutable data plane: each op takes two optional extras in the same
+# counted op, so a live delta costs no further counted launch —
+#   * ``base_tomb`` — (n_pad,) int8 tombstone flags in the data's storage
+#     order, folded into the base masks before the spec's reducer;
+#   * ``delta_cm``  — the delta rows as a (m_pad, d_pad) columnar block (the
+#     base data's padding contract; tombstoned delta rows are +inf). The op
+#     scans it with the batch's bounds through the same mask kernel and
+#     reducers as the base and returns the pair (base_payload,
+#     delta_payload); one ``device_get`` of the pair is still one host sync,
+#     and the spec's ``merge_delta`` folds the halves on the host.
 
-def _multi_scan_reduce(data_cm, lower, upper, *, spec,
-                       tile_n=_rs.DEFAULT_TILE_N, backend="auto"):
+def _delta_payload(delta_cm, lower, upper, *, spec, tile_n, backend):
+    """Scan + reduce the delta block with the batch's bounds."""
+    dmask = _scan_masks(delta_cm, lower, upper, tile_n=tile_n, backend=backend)
+    return spec.device_reduce(dmask, delta_cm, tile_n=tile_n, backend=backend)
+
+
+def _reduce_with_delta(mask, data_cm, lower, upper, delta_cm, base_tomb, *,
+                       spec, tile_n, backend):
+    """Fold the base tombstones, reduce the base, and pair it with the
+    delta's payload when there is a delta block."""
+    if base_tomb is not None:
+        mask = _red.fold_tombstones(mask, base_tomb)
+    base = spec.device_reduce(mask, data_cm, tile_n=tile_n, backend=backend)
+    if delta_cm is None:
+        return base
+    return base, _delta_payload(delta_cm, lower, upper, spec=spec,
+                                tile_n=tile_n, backend=backend)
+
+
+def _multi_scan_reduce(data_cm, lower, upper, delta_cm=None, base_tomb=None, *,
+                       spec, tile_n=_rs.DEFAULT_TILE_N, backend="auto"):
     mask = _scan_masks(data_cm, lower, upper, tile_n=tile_n, backend=backend)
-    return spec.device_reduce(mask, data_cm, tile_n=tile_n, backend=backend)
+    return _reduce_with_delta(mask, data_cm, lower, upper, delta_cm, base_tomb,
+                              spec=spec, tile_n=tile_n, backend=backend)
 
 
 multi_scan_reduce = counted(
@@ -317,11 +366,15 @@ multi_scan_reduce = counted(
 )(_multi_scan_reduce)
 
 
-def _multi_scan_vertical_reduce(data_cm, dim_ids, lower, upper, *, spec,
+def _multi_scan_vertical_reduce(data_cm, dim_ids, lower, upper, delta_cm=None,
+                                base_tomb=None, *, spec,
                                 tile_n=_rs.DEFAULT_TILE_N, backend="auto"):
     mask = _vertical_masks(data_cm, dim_ids, lower, upper, tile_n=tile_n,
                            backend=backend)
-    return spec.device_reduce(mask, data_cm, tile_n=tile_n, backend=backend)
+    # The delta is small: a full scan of it is exact (unconstrained dims
+    # carry match-all bounds), so it needs no vertical variant.
+    return _reduce_with_delta(mask, data_cm, lower, upper, delta_cm, base_tomb,
+                              spec=spec, tile_n=tile_n, backend=backend)
 
 
 multi_scan_vertical_reduce = counted(
@@ -333,14 +386,20 @@ multi_scan_vertical_reduce = counted(
 def _multi_visit_reduce(data_cm, query_ids, block_ids, valid, visit_index,
                         lower, upper, delta_cm=None, base_tomb=None, *, spec,
                         tile_n=_rs.DEFAULT_TILE_N, n_queries=1, backend="auto"):
-    if delta_cm is not None or base_tomb is not None:
-        raise NotImplementedError("the delta plane is not ported yet: "
-                                  "multi_visit_reduce serves a frozen dataset")
     masks = _visit_masks(data_cm, query_ids, block_ids, lower, upper,
                          tile_n=tile_n, backend=backend)
-    return spec.reduce_visits(masks, data_cm, query_ids, block_ids, valid,
+    if base_tomb is not None:
+        masks = _red.fold_tombstones(
+            masks, _red.gather_tomb_blocks(base_tomb, block_ids, tile_n))
+    base = spec.reduce_visits(masks, data_cm, query_ids, block_ids, valid,
                               visit_index, tile_n=tile_n, n_queries=n_queries,
                               backend=backend)
+    if delta_cm is None:
+        return base
+    # The (m_pad, q_pad) bounds cover the whole batch, so the delta scans
+    # once for every query whatever blocks it visited.
+    return base, _delta_payload(delta_cm, lower, upper, spec=spec,
+                                tile_n=tile_n, backend=backend)
 
 
 multi_visit_reduce = counted(

@@ -1,10 +1,12 @@
-"""Single-query columnar range scans, and the launch plumbing every scan shares.
+"""Single-query range scans, and the launch plumbing every scan shares.
 
 Ports ``repro/kernels/range_scan.py`` (``range_scan_tiles``,
-``range_scan_vertical``, ``range_scan_visit``). On the card each is the Q=1
-launch of a batched kernel body: ``multi_scan_kernel`` and
-``multi_scan_vertical_kernel`` in ``csrc/scan.cu``, ``multi_scan_visit_kernel``
-in ``csrc/visit.cu``. On a CPU tensor each runs its plain version.
+``range_scan_vertical``, ``range_scan_rows``, ``range_scan_visit``). On the
+card the columnar three are the Q=1 launch of a batched kernel body:
+``multi_scan_kernel`` and ``multi_scan_vertical_kernel`` in ``csrc/scan.cu``,
+``multi_scan_visit_kernel`` in ``csrc/visit.cu``; the row-major scan has its
+own, ``range_scan_rows_kernel`` in ``csrc/rows.cu``. On a CPU tensor each
+runs its plain version.
 
 Layout and padding contract (``ops.prepare_columnar``): data is
 dimension-major ``(m_pad, n_pad)``; m pads to a multiple of ``SUBLANES`` with
@@ -162,6 +164,43 @@ def range_scan_vertical(
         return _ref.range_scan_ref(data_cm[d], lower[d, 0], upper[d, 0])
     return vertical_cuda("range_scan_vertical", data_cm, dim_ids[None, :],
                          lower, upper)[0]
+
+
+def range_scan_rows(
+    data_rm: torch.Tensor,
+    lower: torch.Tensor,
+    upper: torch.Tensor,
+    *,
+    tile_rows: int = 512,
+) -> torch.Tensor:
+    """Row-major scan of one query (the paper's horizontal layout).
+
+    Args:
+      data_rm: (n_pad, m_pad) row-major data, n_pad % tile_rows == 0,
+        m_pad % 8 == 0 (padding rows +inf, padding dims 0.0).
+      lower, upper: (1, m_pad) finite bounds.
+
+    Returns:
+      (n_pad,) int8 match mask.
+    """
+    n_pad, m_pad = data_rm.shape
+    if n_pad % tile_rows or m_pad % SUBLANES:
+        raise ValueError(f"data_rm ({n_pad}, {m_pad}) / tile_rows={tile_rows}: "
+                         f"need n_pad % tile_rows == 0 and m_pad % {SUBLANES} "
+                         f"== 0")
+    if lower.shape != (1, m_pad) or upper.shape != (1, m_pad):
+        raise ValueError(f"bounds {tuple(lower.shape)}, {tuple(upper.shape)} "
+                         f"!= (1, {m_pad})")
+    if not data_rm.is_cuda:
+        return _ref.range_scan_rows_ref(data_rm, lower, upper)
+    dev = data_rm.device
+    data = cuda_input(data_rm, torch.float32, "data_rm", dev)
+    lo = bounds_input(lower, "lower", data)
+    up = bounds_input(upper, "upper", data)
+    out = torch.empty((n_pad,), dtype=torch.int8, device=dev)
+    _build.launch("range_scan_rows", "mdrq_range_scan_rows", dev, data, n_pad,
+                  m_pad, lo, up, out)
+    return out
 
 
 def check_visits(data_cm: torch.Tensor, block_ids: torch.Tensor,

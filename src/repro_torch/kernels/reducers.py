@@ -198,6 +198,29 @@ def masked_agg(masks, values, op: str, *, tile_n: int, backend: str):
     return agg, counts
 
 
+# -- tombstone folds (the mutable data plane) ---------------------------------
+
+def fold_tombstones(masks: torch.Tensor, tomb: torch.Tensor) -> torch.Tensor:
+    """AND tombstone flags into match masks, in place: a tombstoned object
+    never matches. Returns ``masks``.
+
+    ``tomb`` is int8 (1 = dead) and broadcasts against ``masks`` — (n_pad,)
+    against the (Q, n_pad) scan masks, or a gathered (V, tile_n) block
+    against the visit masks. The masks are the fresh output of the op's mask
+    kernel, so folding in place saves a second (Q, n_pad) array. Runs inside
+    the fused counted ops, before the spec's reducer, so every payload shape
+    sees the tombstones at no extra counted launch and no host sync.
+    """
+    return masks.mul_((tomb == 0).to(masks.dtype))
+
+
+def gather_tomb_blocks(tomb: torch.Tensor, bids: torch.Tensor,
+                       tile_n: int) -> torch.Tensor:
+    """(V, tile_n) tombstone flags of the visited blocks (padding visits ->
+    block 0; harmless — the visit reducers mask them through ``valid``)."""
+    return tomb.reshape(-1, tile_n)[bids.long().clamp(min=0)]
+
+
 # -- visit-shaped reducers (two-phase paths) ----------------------------------
 # Padding visits (block -1, clamped to block 0) carry ``valid == 0`` and are
 # masked out. Float temporaries are built ``_TOPK_CHUNK_ELEMS`` elements at a

@@ -23,6 +23,15 @@ def range_scan_ref(data_cm: torch.Tensor, lower: torch.Tensor,
     return ok.all(dim=0).to(torch.int8)
 
 
+def range_scan_rows_ref(data_rm: torch.Tensor, lower: torch.Tensor,
+                        upper: torch.Tensor) -> torch.Tensor:
+    """(n, m) row-major data, (1, m) bounds -> (n,) int8 mask, 1 where
+    ``all_j lower_j <= x_ij <= upper_j``."""
+    lo = lower.reshape(1, -1).to(data_rm.dtype)
+    up = upper.reshape(1, -1).to(data_rm.dtype)
+    return ((data_rm >= lo) & (data_rm <= up)).all(dim=1).to(torch.int8)
+
+
 def multi_scan_ref(data_cm: torch.Tensor, lower: torch.Tensor,
                    upper: torch.Tensor) -> torch.Tensor:
     """(m, n) data, (m, Q) query-minor bounds -> (Q, n) int8 masks."""

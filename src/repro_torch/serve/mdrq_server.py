@@ -18,6 +18,10 @@ flush records why it fired ("size" | "deadline" | "forced") in
 ``ServerStats.flush_reasons``, in the metrics registry
 (``mdrq_server_flushes_total{reason=...}``) and on the query-log entries;
 per-query queue and execute latency land in per-spec-kind histograms.
+
+Ingest (``append`` / ``delete`` / ``compact``) rides the same window: each
+call first flushes what is pending (reason "ingest"), so a query submitted
+before a write never sees it and one submitted after always does.
 """
 from __future__ import annotations
 
@@ -64,8 +68,10 @@ class ServerStats:
     method_counts: dict[str, int] = dataclasses.field(default_factory=dict)
     # served queries bucketed by result-spec kind ("ids", "count", "topk", ...)
     spec_counts: dict[str, int] = dataclasses.field(default_factory=dict)
-    # flushes bucketed by trigger ("size" | "deadline" | "forced")
+    # flushes bucketed by trigger ("size" | "deadline" | "forced" | "ingest")
     flush_reasons: dict[str, int] = dataclasses.field(default_factory=dict)
+    # ingest calls bucketed by op ("append" | "delete" | "compact")
+    ingest_counts: dict[str, int] = dataclasses.field(default_factory=dict)
     # per-spec-kind latency histograms: queue (submit -> flush start) and
     # execute (the query's batch execution wall time), observed per query
     queue_latency: dict[str, obs.Histogram] = dataclasses.field(
@@ -218,6 +224,38 @@ class MDRQServer:
             "mdrq_server_flushes_total",
             help="server batch flushes, by trigger", reason=reason).inc()
         return len(pending)
+
+    # -- the ingest plane ---------------------------------------------------
+    def append(self, rows) -> np.ndarray:
+        """Append rows ((k, m) array-like) -> their assigned int64 ids."""
+        return self._ingest("append", lambda: self.engine.append(rows))
+
+    def delete(self, ids) -> int:
+        """Tombstone ids -> count of newly deleted rows."""
+        return self._ingest("delete", lambda: self.engine.delete(ids))
+
+    def compact(self) -> np.ndarray:
+        """Compact the engine's delta -> the old-id -> new-id map."""
+        return self._ingest("compact", lambda: self.engine.compact())
+
+    def _ingest(self, op: str, fn):
+        self.flush(reason="ingest")
+        t0 = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t0
+        size = int(out.size) if isinstance(out, np.ndarray) else int(out)
+        # ingest shares the query log (bound-less entries, spec_kind
+        # "ingest"), so writes are seen interleaved with reads
+        nan_bounds = np.full((self.engine.dataset.m,), np.nan, np.float32)
+        self.query_log.offer(obs.QueryLogEntry(
+            lower=nan_bounds, upper=nan_bounds, spec_kind="ingest",
+            method=op, result_size=size, queue_seconds=0.0,
+            execute_seconds=dt, flush_reason="ingest", batch_size=1))
+        self.stats.ingest_counts[op] = self.stats.ingest_counts.get(op, 0) + 1
+        obs.registry().counter("mdrq_ingest_total",
+                               help="server ingest operations, by op",
+                               op=op).inc()
+        return out
 
     def serve_all(self, queries: list[RangeQuery]) -> list:
         """Drive a whole workload through the batching window; results come

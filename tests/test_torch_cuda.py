@@ -11,9 +11,11 @@ that force smaller thread blocks, a 100-dimensional dataset whose tile must
 shrink to fit shared memory (and whose VA codes take 7 packed words), query
 counts that cross the kernels' 32-query groups, visit lists whose length is
 not a power of two and whose tail is padding (block -1), and the 64-bit
-offsets of a mask or a visit output past 2**31 bytes. Masks must be exactly
-equal; sums within rtol=1e-5 (float32 sums in another order) and
-bit-identical across repeated runs; min/max exactly equal.
+offsets of a mask or a visit output past 2**31 bytes; the row-major scan at
+m in {3, 19, 100}; and the engine under a live delta (appended rows, base and
+delta tombstones) on every path. Masks must be exactly equal; sums within
+rtol=1e-5 (float32 sums in another order) and bit-identical across repeated
+runs; min/max exactly equal.
 """
 import numpy as np
 import pytest
@@ -258,6 +260,111 @@ def test_visit_sums_are_bit_identical(dev):
     qs = [q for _, q in gmrqb.mixed_workload(ds, 64, seed=2)]
     eng = MDRQEngine(ds, tile_n=1024)
     for method in ("kdtree", "rstar", "vafile"):
+        first = eng.query_batch(qs, method=method, spec=Agg("sum", 3))
+        again = eng.query_batch(qs, method=method, spec=Agg("sum", 3))
+        assert np.array_equal(np.array(first), np.array(again))
+
+
+# -- the row-major scan ---------------------------------------------------------
+
+@pytest.mark.parametrize("m", [3, 19, 100])
+def test_range_scan_rows_matches_plain(dev, m):
+    """n = 200,003 rows pad to 200,192: the last tile holds +inf rows."""
+    rng = np.random.default_rng(m)
+    n, tile_rows = 200_003, 512
+    m_pad, n_pad = -(-m // 8) * 8, -(-n // tile_rows) * tile_rows
+    rows = np.zeros((n_pad, m_pad), np.float32)
+    rows[:n, :m] = rng.random((n, m), dtype=np.float32)
+    rows[n:] = np.inf
+    data = torch.as_tensor(rows, device=dev)
+    for k in range(3):
+        lo = np.full((1, m_pad), np.finfo(np.float32).min, np.float32)
+        up = np.full((1, m_pad), np.finfo(np.float32).max, np.float32)
+        dims = rng.choice(m, size=min(m, 1 + 2 * k), replace=False)
+        lo[0, dims] = rng.random(dims.size) * 0.3
+        up[0, dims] = 0.7 + rng.random(dims.size) * 0.3
+        lo_t, up_t = torch.as_tensor(lo, device=dev), torch.as_tensor(up, device=dev)
+        got = range_scan.range_scan_rows(data, lo_t, up_t, tile_rows=tile_rows)
+        want = ref.range_scan_rows_ref(data, lo_t, up_t)
+        assert torch.equal(got, want) and bool(want.any())
+        assert not bool(got[n:].any())
+    assert ops.kernel_launches() == {"range_scan_rows": 3}
+
+
+def test_range_scan_rows_rejects_what_the_kernel_does_not_take(dev):
+    b = torch.zeros((1, 8), device=dev)
+    with pytest.raises(TypeError):
+        range_scan.range_scan_rows(torch.zeros((512, 8), device=dev,
+                                               dtype=torch.float64), b, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        range_scan.range_scan_rows(torch.zeros((512, 16), device=dev)[:, ::2],
+                                   b, b)
+    with pytest.raises(ValueError, match="is on"):
+        range_scan.range_scan_rows(torch.zeros((512, 8), device=dev),
+                                   b.cpu(), b.cpu())
+    with pytest.raises(ValueError):
+        range_scan.range_scan_rows(torch.zeros((500, 8), device=dev), b, b)
+    with pytest.raises(ValueError):
+        range_scan.range_scan_rows(torch.zeros((512, 12), device=dev),
+                                   torch.zeros((1, 12), device=dev),
+                                   torch.zeros((1, 12), device=dev))
+    with pytest.raises(ValueError):
+        range_scan.range_scan_rows(torch.zeros((512, 8), device=dev),
+                                   torch.zeros((8, 1), device=dev),
+                                   torch.zeros((8, 1), device=dev))
+    assert ops.kernel_launches() == {}
+
+
+# -- the engine under a live delta -----------------------------------------------
+
+DELTA_SPECS = [Ids(), Count(), Mask(), TopK(k=10, dim=4),
+               TopK(k=10, dim=4, largest=False), Agg("sum", 3), Agg("min", 2),
+               Agg("max", 18)]
+
+
+def _delta_engines(dev):
+    """The engine and the plain-backend engine over 50,000 GMRQB rows, both
+    with 500 fresh rows appended and 600 base + 50 delta rows deleted."""
+    ds = gmrqb.build(50_000, seed=1)
+    qs = [q for _, q in gmrqb.mixed_workload(ds, 48, seed=1)]
+    extra = gmrqb.build(500, seed=2).rows()
+    dead = np.concatenate([
+        np.random.default_rng(3).choice(50_000, 600, replace=False),
+        50_000 + np.arange(50)])
+    engines = []
+    for backend in ("auto", "torch"):
+        eng = MDRQEngine(ds, tile_n=1024, rowscan=True, backend=backend)
+        eng.append(extra)
+        eng.delete(dead)
+        engines.append(eng)
+    return engines[0], engines[1], qs
+
+
+@pytest.mark.parametrize("spec", DELTA_SPECS, ids=str)
+def test_engine_under_a_delta_matches_plain_backend(dev, spec):
+    eng, plain, qs = _delta_engines(dev)
+    for method in ("auto", "scan", "scan_vertical", "kdtree", "rstar",
+                   "vafile", "rowscan"):
+        batch = qs[:8] if method == "rowscan" else qs
+        got = eng.query_batch(batch, method=method, spec=spec)
+        want = plain.query_batch(batch, method=method, spec=spec)
+        assert eng.last_batch_stats.methods == plain.last_batch_stats.methods
+        for g, w in zip(got, want):
+            if isinstance(w, np.ndarray):
+                np.testing.assert_array_equal(g, w)
+            elif spec.kind == "agg" and spec.op == "sum":
+                np.testing.assert_allclose(g, w, rtol=SUM_RTOL)
+            else:
+                assert g == w or (np.isnan(g) and np.isnan(w))
+    launches = ops.kernel_launches()
+    for name in ("multi_scan_tiles", "multi_scan_vertical", "multi_scan_visit",
+                 "multi_va_filter_packed", "range_scan_rows"):
+        assert launches.get(name, 0) > 0, name
+
+
+def test_visit_sums_under_a_delta_are_bit_identical(dev):
+    eng, _, qs = _delta_engines(dev)
+    for method in ("scan", "kdtree", "rstar", "vafile"):
         first = eng.query_batch(qs, method=method, spec=Agg("sum", 3))
         again = eng.query_batch(qs, method=method, spec=Agg("sum", 3))
         assert np.array_equal(np.array(first), np.array(again))

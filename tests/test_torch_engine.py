@@ -227,13 +227,6 @@ def test_default_device_is_cuda():
         MDRQEngine(ds)
 
 
-@pytest.mark.parametrize("name", ["rowscan"])
-def test_later_structures_name_their_slice(name):
-    ds = synthetic.synt_uni(1024, 3, seed=0)
-    with pytest.raises(ValueError, match="slice"):
-        MDRQEngine(ds, structures=("scan", name), device="cpu")
-
-
 def test_empty_batch_and_bad_dims():
     ds = synthetic.synt_uni(1024, 3, seed=0)
     eng = MDRQEngine(ds, tile_n=TILE_N, device="cpu")

@@ -427,14 +427,21 @@ def test_device_arrays_are_row_major(engines):
 
 
 def test_visit_reduce_refuses_a_delta():
-    """The delta plane is not ported: the fused visit op says so instead of
-    ignoring the delta's rows."""
+    """The visit op no longer refuses a delta: with the delta block and the
+    base tombstones it returns (base payload, delta payload) from one
+    counted op — the base with the tombstoned objects folded out, the delta
+    half the full scan's reduce of the delta block."""
     padded, lo, up, qids, bids = _blocks_case(5, 2, 9, seed=4)
     args = (_t(padded), _t(qids), _t(bids), _t((bids >= 0).astype(np.int32)),
             torch.zeros((1, 1), dtype=torch.int32), _t(lo), _t(up))
-    with pytest.raises(NotImplementedError, match="delta"):
-        ops.multi_visit_reduce(*args, _t(padded), spec=Count(), tile_n=TILE_N,
-                               n_queries=2)
     counts = ops.multi_visit_reduce(*args, spec=Count(), tile_n=TILE_N,
                                     n_queries=2)
     assert counts.shape == (2,)
+    tomb = torch.ones((padded.shape[1],), dtype=torch.int8)
+    base, delta = ops.multi_visit_reduce(*args, _t(padded), tomb, spec=Count(),
+                                         tile_n=TILE_N, n_queries=2)
+    assert base.tolist() == [0, 0]            # every base object tombstoned
+    assert torch.equal(delta, ops.multi_scan_reduce(_t(padded), _t(lo), _t(up),
+                                                    spec=Count(),
+                                                    tile_n=TILE_N))
+    assert ops.counter("multi_visit_reduce") == 2
