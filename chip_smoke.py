@@ -57,6 +57,32 @@ non-zero without printing a result:
                TopK d3 per path, frozen and under the delta; the tombstone
                fold's time; ``compact()`` on both engines (id map, version 1,
                seconds, peak device memory), then the B = 128 checks again.
+ 10. lm      — the LM decode-serving path, after both engines are freed.
+               Qwen3-8B at full width and depth (36 layers, d_model 4096,
+               random bf16 weights from a torch.Generator, seed 0):
+               ``BatchServer(slots=4, max_len=1024)`` serves 8 requests
+               (seed 0; prompts of 4-15 tokens, 16 new tokens) through the
+               MDRQ admission filter with ``kv_block_prune=4``,
+               ``kv_block_size=32`` (``launch.serve --kv-prune 4``); every
+               admitted request completes at its length, with the logits
+               (within ``LOGIT_ATOL``) and token ids of the same server on
+               the plain backend, up to the first step whose plain top-2
+               logit margin is under twice that step's logit difference. Then
+               long-context decode: B = 4 at 32,768 slots, blocks of 512 keys,
+               16 of 64 kept, K/V caches from a generator (seed 1), positions
+               32,759 - 64 b (the last block partial), 8 teacher-forced steps
+               on each backend on its own cache copy: every kernel call
+               (here and in the server) within ``KV_RTOL`` of its plain
+               version on the same inputs, every visit list the top 16 by a
+               numpy stable sort of its bounds, logits within
+               ``LOGIT_ATOL``, layer-0 visit lists of the two backends
+               equal; a profile of three steps (device busy and idle share,
+               top ops); warm ms per step and tokens/s with the kernel and
+               with ``kv_block_prune=0`` on the same state;
+               ``kv_visit_attention`` at that shape for one layer against
+               its plain version, against two planted faults (which the
+               ``KV_RTOL`` check must reject) and against
+               ``scaled_dot_product_attention`` over the whole cache.
 
 The last three lines are the kernel table (JSON), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -64,6 +90,7 @@ The last three lines are the kernel table (JSON), the nvidia-smi line, and
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -102,6 +129,31 @@ AGG_SUM_RTOL = 1e-5
 # rate outside the tensor cores).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+
+# -- the LM phase --
+LM_ARCH = "qwen3_8b"
+LM_SEED = 0
+LM_REQUESTS, LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW = 8, 4, 1024, 16
+LM_PRUNE, LM_BLOCK = 4, 32          # what launch.serve --kv-prune 4 sets
+LONG_B, LONG_SLOTS, LONG_BLOCK, LONG_PRUNE = 4, 32_768, 512, 16
+LONG_STEPS = 8
+LONG_TIMED_STEPS = 10
+# The kernel against its plain version on the same bf16 inputs: both sides
+# accumulate in float32 and round the output once to bf16, so they may differ
+# by one bf16 ulp of a value, at most 2**-7 of the largest |output|. The limit
+# is two such ulps of the largest |plain output| of the call. kv_visit_row
+# plants two faults at the long-context shape (the last listed block dropped;
+# the keys of the partial 128-key tile masked) and requires the check to
+# reject each (readings in PERF.md).
+KV_RTOL = 2.0 ** -6
+# End to end, both backends compute in bf16 and differ only where the
+# attention output rounds, but a one-ulp difference in one layer grows
+# through 36 layers of a random-init network (and through the caches the
+# steps write): on an H100 the two backends' logits come out 0.08 (server) to
+# 0.18 (long context) apart at |logit| < 5 (PERF.md). The kernel's own
+# faults are caught per call (KV_RTOL); this limit bounds the drift of the
+# whole path.
+LOGIT_ATOL = 0.5
 
 
 class CheckFailed(AssertionError):
@@ -805,6 +857,407 @@ def delta_phase(eng, eng_plain, ds, queries):
     return fold_ms, compact_s, peak
 
 
+def lm_server(model, params, logits=None):
+    """Serve LM_REQUESTS requests (seed LM_SEED) through ``BatchServer``;
+    with ``logits`` (a dict), record the logits row of every generated token
+    per request id -> (done, steps, seconds)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import BatchServer, Request, admission_query
+
+    cfg = model.cfg
+    rng = np.random.default_rng(LM_SEED)
+    reqs = [Request(rid=i,
+                    prompt=rng.integers(0, cfg.vocab_size,
+                                        int(rng.integers(4, 16))).astype(np.int32),
+                    max_new=LM_MAX_NEW,
+                    features=np.array([rng.random(), 8, 100.0, rng.random()],
+                                      np.float32))
+            for i in range(LM_REQUESTS)]
+    srv = BatchServer(model, params, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    if logits is not None:
+        step = srv.step_fn
+
+        def recording_step(params, cache, toks, pos):
+            out, cache = step(params, cache, toks, pos)
+            rows = out[:, 0, :cfg.vocab_size].cpu().numpy()
+            for s, req in enumerate(srv.active):
+                if req is not None and not srv.to_feed[s]:
+                    logits.setdefault(req.rid, []).append(rows[s])
+            return out, cache
+        srv.step_fn = recording_step
+    ops.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = srv.serve(reqs, admission_query())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    steps = ops.counter("host_sync") - 1   # one per step, plus the admission's
+    feats = np.stack([r.features for r in reqs])
+    admitted = {r.rid for r in reqs if 0.2 <= r.features[0] <= 1.0
+                and 0.0 <= r.features[3] <= 0.8}
+    check({r.rid for r in done} == admitted,
+          f"served {sorted(r.rid for r in done)} != admitted {sorted(admitted)}"
+          f" (features {feats.tolist()})")
+    for r in done:
+        check(r.output is not None and r.output.shape == (LM_MAX_NEW,),
+              f"request {r.rid}: output {r.output!r}")
+    return done, steps, seconds
+
+
+def lm_server_part(model, plain, params) -> None:
+    """The server with the kernel against the same server on the plain
+    backend.
+
+    Token j of a request is compared while both sides have generated the
+    same tokens before it: its logits must agree within LOGIT_ATOL, and its
+    token must be equal unless the plain side's top-2 margin is under twice
+    the step's largest logit difference (a tie within what the two backends
+    may differ by): then the step is printed and the request compared no
+    further."""
+    done, steps, seconds = lm_server(model, params)
+    rec_k: dict[int, list] = {}
+    rec_p: dict[int, list] = {}
+    shadow = {"calls": 0, "err": 0.0, "rel": 0.0}
+    with plain_shadow(shadow):
+        again, _, _ = lm_server(model, params, rec_k)
+    check(shadow["calls"] == steps * model.cfg.n_layers,
+          f"{shadow['calls']} server kernel calls held against the plain "
+          f"version, not one per layer and step")
+    check([r.output.tolist() for r in again] == [r.output.tolist() for r in done],
+          "the kernel server gave other tokens on a second run")
+    plain_done, _, plain_seconds = lm_server(plain, params, rec_p)
+    check([r.rid for r in done] == [r.rid for r in plain_done],
+          "completion order differs from the plain backend's")
+    compared, worst = 0, 0.0
+    for r, p in zip(done, plain_done):
+        for j, (a, b) in enumerate(zip(r.output, p.output)):
+            lk, lp = rec_k[r.rid][j], rec_p[r.rid][j]
+            d = float(np.abs(lk - lp).max())
+            worst = max(worst, d)
+            check(d <= LOGIT_ATOL, f"request {r.rid} token {j}: logits differ "
+                                   f"by {d} > {LOGIT_ATOL}")
+            top2 = np.sort(lp)[-2:]
+            margin = float(top2[1] - top2[0])
+            if margin < 2 * d:
+                print(f"  request {r.rid} token {j}: plain top-2 margin "
+                      f"{margin:.4g} < 2 x logit difference {d:.4g}; compared "
+                      f"no further", flush=True)
+                break
+            check(a == b, f"request {r.rid} token {j}: kernel {a} != plain {b}")
+            compared += 1
+    tokens = sum(r.output.size for r in done)
+    print(f"  server: {len(done)} of {LM_REQUESTS} requests admitted and "
+          f"completed, {tokens} tokens in {steps} steps, {seconds:.2f} s "
+          f"({seconds / steps * 1e3:.1f} ms/step, {tokens / seconds:.1f} "
+          f"generated tokens/s; plain backend, recording, "
+          f"{plain_seconds:.2f} s); {compared} of {tokens} tokens compared "
+          f"equal; max |logit kernel - plain| {worst:.4g}; each of "
+          f"{shadow['calls']} kv_visit_attention calls within "
+          f"{shadow['err']:.4g} ({shadow['rel']:.4g} of its max |plain|; "
+          f"limit {KV_RTOL:.4g}) of its plain version", flush=True)
+    for r in done:
+        print(f"  request {r.rid}: prompt {r.prompt.size} tokens -> "
+              f"{r.output[:8].tolist()}...", flush=True)
+
+
+def long_cache(model, start: torch.Tensor) -> dict:
+    """A long-context cache: K/V from a generator (seed 1, bf16) in the
+    slots before each row's start position, zeros after; zone maps over the
+    written slots."""
+    from repro_torch import numerics
+    cfg = model.cfg
+    cache = model.init_cache(LONG_B, LONG_SLOTS)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    written = (torch.arange(LONG_SLOTS, device="cuda")[None, :]
+               < start[:, None])                                  # (B, S)
+    nb = LONG_SLOTS // LONG_BLOCK
+    big = numerics.finite_max(torch.bfloat16)
+    w5 = written.view(LONG_B, nb, LONG_BLOCK, 1, 1)
+    for layer in range(cfg.n_layers):
+        for name in ("k", "v"):
+            t = cache[name][layer]
+            t.normal_(generator=gen)
+            t.mul_(written[:, :, None, None])
+        kb = cache["k"][layer].view(LONG_B, nb, LONG_BLOCK, cfg.n_kv_heads,
+                                    -1).float()
+        cache["kmin"][layer] = torch.where(w5, kb, big).amin(dim=2)
+        cache["kmax"][layer] = torch.where(w5, kb, -big).amax(dim=2)
+        del kb
+    return cache
+
+
+def kv_err(got, want) -> tuple[float, float]:
+    """(max |kernel - plain|, max |plain|) of one kv_visit_attention output;
+    the check is err <= KV_RTOL * scale."""
+    want = want.float()
+    return (float((got.float() - want).abs().max()),
+            float(want.abs().max()))
+
+
+@contextlib.contextmanager
+def plain_shadow(stats):
+    """Within the block, hold every kernel call of ``ops.kv_visit_attention``
+    against the plain version on the same inputs (before the next layer can
+    change them); the plain calls launch no kernel and are not counted.
+    ``stats`` collects the calls, the largest error and the largest error
+    over its call's max |plain output|."""
+    from repro_torch.kernels import ops, ref
+    op = ops.kv_visit_attention
+
+    def checked(q, k_blocks, v_blocks, block_ids, pos, *, backend="auto"):
+        out = op(q, k_blocks, v_blocks, block_ids, pos, backend=backend)
+        if backend == "auto":
+            err, scale = kv_err(out, ref.kv_visit_attention_ref(
+                q, k_blocks, v_blocks, block_ids, pos))
+            check(err <= KV_RTOL * scale,
+                  f"kv_visit_attention call {stats['calls']}: {err} from its "
+                  f"plain version > {KV_RTOL} x max |plain| {scale}")
+            stats["calls"] += 1
+            stats["err"] = max(stats["err"], err)
+            stats["rel"] = max(stats["rel"], err / scale)
+        return out
+    ops.kv_visit_attention = checked
+    try:
+        yield
+    finally:
+        ops.kv_visit_attention = op
+
+
+def profile_steps(model, params, cache, tok, pos, steps: int = 3) -> None:
+    """torch.profiler over ``steps`` warm decode steps: device busy time
+    against the wall clock, and the ops that take the most device and host
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            model.decode_step(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    busy = sum(dev_us(e) for e in events)
+    if busy <= 0:
+        print("  profiler: no device time recorded; idle share not measured",
+              flush=True)
+        return
+    print(f"  profiler, {steps} pruned decode steps: wall {wall_us / steps / 1e3:.2f}"
+          f" ms/step, device busy {busy / steps / 1e3:.2f} ms/step, idle share "
+          f"{1 - busy / wall_us:.3f}", flush=True)
+    for e in sorted(events, key=dev_us, reverse=True)[:10]:
+        print(f"    device {dev_us(e) / steps / 1e3:8.3f} ms/step  calls "
+              f"{e.count // steps:5d}  {e.key[:70]}", flush=True)
+    for e in sorted(events, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:8]:
+        print(f"    host   {e.self_cpu_time_total / steps / 1e3:8.3f} ms/step  "
+              f"calls {e.count // steps:5d}  {e.key[:70]}", flush=True)
+
+
+def lm_long_part(params):
+    """Teacher-forced long-context decode on both backends; step times with
+    and without the prune on the same state -> (the kernel's cache, the
+    last step's layer-0 visit list, its positions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(LM_ARCH).replace(kv_block_prune=LONG_PRUNE,
+                                      kv_block_size=LONG_BLOCK)
+    model = build_model(cfg)
+    plain = build_model(cfg, backend="torch")
+    start = torch.tensor([LONG_SLOTS - 1 - LONG_STEPS - 64 * b
+                          for b in range(LONG_B)], device="cuda")
+    t0 = time.perf_counter()
+    cache = long_cache(model, start)
+    cache_p = {k: v.clone() for k, v in cache.items()}
+    torch.cuda.synchronize()
+    print(f"  long-context caches: 2 x {2 * cache['k'].nbytes / 1e9:.2f} GB "
+          f"(K + V) + zone maps, filled in {time.perf_counter() - t0:.1f} s; "
+          f"positions {start.tolist()}; device memory "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (LONG_STEPS, LONG_B, 1)), device="cuda")
+    worst, rows, differ = 0.0, 0, 0
+    shadow = {"calls": 0, "err": 0.0, "rel": 0.0}
+    for t in range(LONG_STEPS):
+        vk, vp = [], []
+        with plain_shadow(shadow):
+            lk, _ = model.decode_step(params, cache, toks[t], start + t,
+                                      visits=vk)
+        lp, _ = plain.decode_step(params, cache_p, toks[t], start + t,
+                                  visits=vp)
+        worst = max(worst, float((lk - lp).abs().max()))
+        for layer, ((top_k, ub_k), (top_p, _)) in enumerate(zip(vk, vp)):
+            # the selection on the card against numpy's stable sort: the
+            # largest bounds first, ties to the lower block id
+            want = np.argsort(-ub_k.cpu().numpy(), axis=-1,
+                              kind="stable")[..., :top_k.shape[-1]]
+            check(np.array_equal(top_k.cpu().numpy(), want),
+                  f"step {t} layer {layer}: the visit list is not the top "
+                  f"{LONG_PRUNE} blocks by bound with ties to the lower id")
+            rows += top_k.shape[0] * top_k.shape[1]
+            n = int((top_k != top_p).any(dim=-1).sum())
+            # layer 0's bounds come from the same inputs on both sides
+            check(layer > 0 or n == 0,
+                  f"step {t}: layer-0 visit lists differ ({n} rows)")
+            differ += n
+    check(shadow["calls"] == LONG_STEPS * cfg.n_layers,
+          f"{shadow['calls']} kernel calls held against the plain version")
+    check(worst <= LOGIT_ATOL,
+          f"long-context logits differ by {worst} > {LOGIT_ATOL}")
+    print(f"  {LONG_STEPS} teacher-forced steps: each of {shadow['calls']} "
+          f"kv_visit_attention calls within {shadow['err']:.4g} of its plain "
+          f"version on the same inputs ({shadow['rel']:.4g} of its max "
+          f"|plain|; limit {KV_RTOL:.4g}), each visit list the top "
+          f"{LONG_PRUNE} by a numpy stable sort; max |logit kernel - plain| "
+          f"{worst:.4f} (tolerance {LOGIT_ATOL}, |logit| <= "
+          f"{float(lk.abs().max()):.2f}); visit lists: {rows} (b, kv) "
+          f"selections, layer 0 equal, {differ} differ past layer 0",
+          flush=True)
+    del cache_p
+    torch.cuda.empty_cache()
+
+    pos = start + LONG_STEPS - 1
+    tok = toks[-1]
+    dense = build_model(cfg.replace(kv_block_prune=0))
+    times = {}
+    for name, m in (("pruned", model), ("full", dense)):
+        for _ in range(2):
+            m.decode_step(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LONG_TIMED_STEPS):
+            m.decode_step(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) / LONG_TIMED_STEPS * 1e3
+        print(f"  warm decode step, B={LONG_B} at {LONG_SLOTS} slots, "
+              f"kv_block_prune={m.cfg.kv_block_prune}: {times[name]:.2f} ms "
+              f"({LONG_B * 1e3 / times[name]:.1f} tokens/s)", flush=True)
+    profile_steps(model, params, cache, tok, pos)
+    vk = []
+    model.decode_step(params, cache, tok, pos, visits=vk)
+    return cache, vk[0][0], pos
+
+
+def kv_visit_row(cfg, cache, ids, pos) -> dict:
+    """Kernel 12 at the long-context shape, layer 0: against its plain
+    version and against SDPA over the whole cache with a mask of the same
+    keys."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import kv_visit, ref
+
+    # ids and positions as the wrapper hands them to the kernel (int32), so
+    # the times are the kernel's, not the casts'
+    ids, pos = ids.to(torch.int32), pos.to(torch.int32)
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    g = cfg.n_heads // kv
+    nb = LONG_SLOTS // LONG_BLOCK
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q = torch.randn((LONG_B, kv, g, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+
+    def view(c):
+        return c.view(LONG_B, nb, LONG_BLOCK, kv, hd).permute(0, 3, 1, 2, 4)
+    kb, vb = view(cache["k"][0]), view(cache["v"][0])
+    got = kv_visit.kv_visit_attention(q, kb, vb, ids, pos)
+    want = ref.kv_visit_attention_ref(q, kb, vb, ids, pos)
+    err, scale = kv_err(got, want)
+    check(err <= KV_RTOL * scale, f"kv_visit_attention differs from plain by "
+                                  f"{err} > {KV_RTOL} x max |plain| {scale}")
+    check(torch.equal(got, kv_visit.kv_visit_attention(q, kb, vb, ids, pos)),
+          "kv_visit_attention differs between identical calls")
+    # Planted faults: the kernel on altered inputs, held against the plain
+    # output of the true ones, as a kernel with that fault would be. The
+    # check above must reject each.
+    dropped = ids.clone()
+    dropped[..., -1] = -1                      # the last listed block
+    tile_start = pos - pos % 128               # the keys of the partial tile
+    for fault, args in (("last listed block dropped", (dropped, pos)),
+                        ("partial 128-key tile masked", (ids, tile_start - 1))):
+        f_err, _ = kv_err(kv_visit.kv_visit_attention(q, kb, vb, *args), want)
+        check(f_err > KV_RTOL * scale,
+              f"planted fault ({fault}) passes the check: {f_err}")
+        print(f"  planted fault, {fault}: max |kernel - plain| {f_err:.4g} "
+              f"= {f_err / scale:.4g} of max |plain| {scale:.4g} (limit "
+              f"{KV_RTOL:.4g}; sound reading {err / scale:.4g})", flush=True)
+
+    # The library yardstick reads the whole cache: SDPA with a mask of the
+    # selected, valid slots per (b, query head).
+    slots = torch.arange(LONG_SLOTS, device="cuda")
+    sel = torch.zeros((LONG_B, kv, nb), dtype=torch.bool, device="cuda")
+    sel.scatter_(2, ids.long(), True)
+    mask = sel.repeat_interleave(LONG_BLOCK, dim=2) \
+        & (slots[None, None, :] <= pos[:, None, None])
+    mask = mask.repeat_interleave(g, dim=1)[:, :, None, :]      # (B, H, 1, S)
+    qh = q.reshape(LONG_B, kv * g, 1, hd)
+    kf = cache["k"][0].permute(0, 2, 1, 3)                       # (B, KV, S, hd)
+    vf = cache["v"][0].permute(0, 2, 1, 3)
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kf, vf, attn_mask=mask,
+                                              enable_gqa=True)
+    lib_err = float((library().reshape(got.shape).float() - got.float())
+                    .abs().max())
+    # Bound: the valid keys of the listed blocks, K and V rows read once;
+    # q, ids and the output once; 4 * G * hd flops per key.
+    first = ids.long() * LONG_BLOCK
+    keys = int((pos[:, None, None] - first + 1).clamp(0, LONG_BLOCK).sum())
+    nbytes = keys * hd * 2 * 2 + 2 * q.numel() * 2 + ids.numel() * 4
+    b_ms, by = bound_ms(nbytes, 4.0 * g * hd * keys)
+    row = {"name": "kv_visit_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/kv_visit.cu",
+           "replaces": "src/repro/kernels/kv_visit.py:110", "launches": 0,
+           "max_abs_err": err,
+           "ms": time_ms(lambda: kv_visit.kv_visit_attention(q, kb, vb, ids,
+                                                             pos)),
+           "plain_ms": time_ms(lambda: ref.kv_visit_attention_ref(q, kb, vb,
+                                                                  ids, pos)),
+           "bound_ms": b_ms, "bound_by": by, "library_ms": time_ms(library)}
+    print(f"  kv_visit_attention, B={LONG_B} KV={kv} G={g} hd={hd}, "
+          f"{ids.shape[-1]} of {nb} blocks of {LONG_BLOCK} ({keys} valid keys): "
+          f"err={err} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+          f"bound_ms={b_ms:.4f} ({by}) library_ms={row['library_ms']:.4f} "
+          f"(SDPA over all {LONG_SLOTS} slots; max |SDPA - kernel| "
+          f"{lib_err:.4g})", flush=True)
+    return row
+
+
+def lm_phase() -> dict:
+    """The LM decode-serving path at Qwen3-8B's full width and depth ->
+    the kernel table's row of kv_visit_attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import count_params
+    from repro_torch.models.registry import build_model
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LM_ARCH).replace(kv_block_prune=LM_PRUNE,
+                                      kv_block_size=LM_BLOCK)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(LM_SEED))
+    torch.cuda.synchronize()
+    print(f"  {cfg.name}: {count_params(params) / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+          f"initialised in {time.perf_counter() - t0:.1f} s", flush=True)
+    ops.reset_kernel_launches()
+    lm_server_part(model, build_model(cfg, backend="torch"), params)
+    long = lm_long_part(params)
+    launches = ops.kernel_launches()
+    print(f"  kernel launches on the LM path: {launches}", flush=True)
+    check(launches.get("kv_visit_attention", 0) > 0,
+          "kernel kv_visit_attention was not launched on the LM path")
+    row = kv_visit_row(cfg, *long)
+    row["launches"] = launches["kv_visit_attention"]
+    print(f"  LM phase peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -840,9 +1293,10 @@ def main() -> int:
               f"{tuple(eng.columnar.data_dev.shape)} float32 per structure; "
               f"packed VA codes {tuple(eng.vafile.packed_dev.shape)} int32",
               flush=True)
-        for name, e in (("engine", eng), ("plain engine", eng_plain)):
+        for name, secs in (("engine", eng.build_seconds),
+                           ("plain engine", eng_plain.build_seconds)):
             print(f"  {name} build seconds: " + ", ".join(
-                f"{k} {v:.1f}" for k, v in e.build_seconds.items()), flush=True)
+                f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
         print(f"  device memory allocated: "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
 
@@ -886,6 +1340,15 @@ def main() -> int:
 
     with phase("delta"):
         delta_phase(eng, eng_plain, ds, queries)
+
+    # The LM phase needs the card's memory: free both engines first.
+    del eng, eng_plain, oracle
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  engines freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated", flush=True)
+    with phase("lm"):
+        rows.append(lm_phase())
 
     print(json.dumps({"kernels": rows}))
     print(smi)

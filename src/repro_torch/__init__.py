@@ -1,8 +1,11 @@
 """repro_torch — the MDRQ engine in PyTorch, with its kernels in CUDA for Hopper.
 
 A port of the JAX package ``repro`` that mirrors its layout (``core/``,
-``kernels/``, ``obs/``, ``serve/``, ``data/``) and module names. It imports
-``torch`` and numpy, never ``jax`` and nothing of ``repro``.
+``kernels/``, ``obs/``, ``serve/``, ``data/``, ``configs/``, ``models/``,
+``launch/``) and module names. It imports ``torch`` and numpy, never ``jax``
+and nothing of ``repro``. Besides the MDRQ engine it runs the LM
+decode-serving path (dense models, zone-map KV block prune) behind
+``serve.BatchServer``, whose admission filter is an MDRQ.
 
 Device rule: every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``. On a CUDA tensor the kernel wrappers launch the hand-written

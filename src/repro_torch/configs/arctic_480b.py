@@ -1,0 +1,12 @@
+"""arctic-480b — 128-expert top-2 MoE with dense residual FFN every layer
+[hf:Snowflake/snowflake-arctic-base]."""
+from repro_torch.configs.base import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="arctic-480b", family="moe",
+    n_layers=35, d_model=7168, n_heads=56, n_kv_heads=8,
+    d_ff=4864, vocab_size=32000, head_dim=128,
+    tie_embeddings=False,
+    moe=MoEConfig(n_experts=128, top_k=2, d_ff_expert=4864,
+                  dense_residual=True),
+)

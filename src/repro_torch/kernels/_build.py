@@ -30,7 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-SOURCES = ("scan.cu", "reducers.cu", "visit.cu", "va_filter.cu", "rows.cu")
+SOURCES = ("scan.cu", "reducers.cu", "visit.cu", "va_filter.cu", "rows.cu",
+           "kv_visit.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,6 +46,9 @@ _SIGNATURES = {
                               _I, _P),
     "mdrq_multi_va_filter": (_P, _LL, _I, _I, _P, _P, _I, _P, _I, _I, _P),
     "mdrq_range_scan_rows": (_P, _LL, _I, _P, _P, _P, _I, _P),
+    "mdrq_kv_visit_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
+                                _LL, _LL, _F, _F, _I, _P),
 }
 
 # Kernel launches per wrapper name since the last ``reset_launches``.

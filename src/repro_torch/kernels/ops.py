@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import kv_visit as _kvv
 from repro_torch.kernels import multi_scan as _ms
 from repro_torch.kernels import range_scan as _rs
 from repro_torch.kernels import reducers as _red
@@ -421,3 +422,18 @@ mask_counts = counted(
     "padding objects are +inf sentinels that never match, so summing the "
     "padded axis is exact.",
 )(_mask_counts)
+
+
+def _kv_visit_attention(q, k_blocks, v_blocks, block_ids, pos, *,
+                        backend="auto"):
+    if check_backend(backend) == "torch":
+        _kvv.check_inputs(q, k_blocks, v_blocks, block_ids, pos)
+        return _ref.kv_visit_attention_ref(q, k_blocks, v_blocks, block_ids,
+                                           pos)
+    return _kvv.kv_visit_attention(q, k_blocks, v_blocks, block_ids, pos)
+
+
+kv_visit_attention = counted(
+    "kv_visit_attention",
+    "Block-visit decode attention (zone-map-pruned KV) -> (B, KV, G, hd).",
+)(_kv_visit_attention)

@@ -3,11 +3,15 @@
 Each function is the semantic ground truth its CUDA kernel is held against:
 the kernel wrappers run these on CPU tensors, the ops run them on any device
 under ``backend="torch"``, and ``chip_smoke.py`` compares every kernel with
-its plain version on the card. Masks are discrete, so equality is exact.
+its plain version on the card. Masks are discrete, so equality is exact;
+the decode attention (``kv_visit_attention_ref``) is float arithmetic and is
+held within a stated tolerance.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch import numerics
 
 # Reduction identities, keyed by agg op.
 AGG_FILL = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
@@ -142,3 +146,34 @@ def multi_va_filter_packed_ref(packed: torch.Tensor, cell_lo: torch.Tensor,
                                field[None, :] <= hi[d, :, None])
         acc = torch.logical_and(acc, ok)
     return acc.to(torch.int8)
+
+
+def kv_visit_attention_ref(q: torch.Tensor, k_blocks: torch.Tensor,
+                           v_blocks: torch.Tensor, block_ids: torch.Tensor,
+                           pos: torch.Tensor) -> torch.Tensor:
+    """Decode attention over only the listed key blocks.
+
+    q: (B, KV, G, hd); k/v_blocks: (B, KV, nb, bs, hd), any strides (the
+    model passes a block-major view of its token-major cache);
+    block_ids: (B, KV, n_visit) (-1 = padding: reads block 0, masked);
+    pos: (B,). Scores and softmax in float32; masked keys take the finite
+    ``mask_fill(bfloat16)``. Returns (B, KV, G, hd) in q's dtype.
+    """
+    b, kv, g, hd = q.shape
+    bs = k_blocks.shape[3]
+    ids = block_ids.long().clamp(min=0)
+    k_sel = torch.take_along_dim(k_blocks, ids[..., None, None], dim=2)
+    v_sel = torch.take_along_dim(v_blocks, ids[..., None, None], dim=2)
+    slots = ids[..., None] * bs + torch.arange(bs, device=q.device)
+    valid = (slots <= pos.long()[:, None, None, None]) \
+        & (block_ids[..., None] >= 0)
+    s = torch.einsum("bkgh,bkjth->bkgjt", q.float(), k_sel.float()) \
+        * (hd ** -0.5)
+    s = torch.where(valid[:, :, None, :, :], s,
+                    numerics.mask_fill(torch.bfloat16))
+    nv = block_ids.shape[-1]
+    s = s.reshape(b, kv, g, nv * bs)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,bkth->bkgh", w,
+                       v_sel.float().reshape(b, kv, nv * bs, hd))
+    return out.to(q.dtype)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["as_torch_dtype", "finite_min", "finite_max"]
+__all__ = ["as_torch_dtype", "finite_min", "finite_max", "mask_fill"]
 
 
 def as_torch_dtype(dtype) -> torch.dtype:
@@ -32,3 +32,15 @@ def finite_min(dtype) -> float:
 def finite_max(dtype) -> float:
     """Largest finite value representable in ``dtype``, as a float."""
     return float(torch.finfo(as_torch_dtype(dtype)).max)
+
+
+def mask_fill(dtype=torch.bfloat16) -> float:
+    """Additive attention-mask fill: large negative, finite in ``dtype``.
+
+    Pass the narrowest dtype the masked scores may ever be cast to (the
+    default, bfloat16, survives bf16 <-> f32 round trips). The 0.7 factor
+    keeps headroom so adding real score magnitudes on top of the fill cannot
+    overflow ``dtype`` before the softmax zeroes the lane; ``exp`` of any
+    value at this scale underflows to exactly 0 in every float dtype.
+    """
+    return 0.7 * finite_min(dtype)

@@ -1,4 +1,8 @@
-"""repro_torch.serve — the batched MDRQ query server (synchronous window)."""
+"""repro_torch.serve — the batched MDRQ query server (synchronous window),
+and the LM's decode step and continuous batcher with MDRQ admission."""
+from repro_torch.serve.batching import BatchServer, Request, admission_query
 from repro_torch.serve.mdrq_server import MDRQServer, ServerStats, Ticket
+from repro_torch.serve.serve_step import greedy_sample, make_serve_step
 
-__all__ = ["MDRQServer", "ServerStats", "Ticket"]
+__all__ = ["MDRQServer", "ServerStats", "Ticket", "BatchServer", "Request",
+           "admission_query", "greedy_sample", "make_serve_step"]

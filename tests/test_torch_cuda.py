@@ -15,7 +15,11 @@ offsets of a mask or a visit output past 2**31 bytes; the row-major scan at
 m in {3, 19, 100}; and the engine under a live delta (appended rows, base and
 delta tombstones) on every path. Masks must be exactly equal; sums within
 rtol=1e-5 (float32 sums in another order) and bit-identical across repeated
-runs; min/max exactly equal.
+runs; min/max exactly equal. The block-visit decode attention at head dims
+32-256, 2-8 query rows per kv head and blocks not a multiple of its tile,
+through strided views of a token-major cache (equal to a contiguous copy,
+bit-identical across calls), its masking edge cases, and the reduced Qwen3
+decode on the card against the plain backend and the CPU.
 """
 import numpy as np
 import pytest
@@ -368,3 +372,124 @@ def test_visit_sums_under_a_delta_are_bit_identical(dev):
         first = eng.query_batch(qs, method=method, spec=Agg("sum", 3))
         again = eng.query_batch(qs, method=method, spec=Agg("sum", 3))
         assert np.array_equal(np.array(first), np.array(again))
+
+
+# -- kv_visit_attention (decode attention over a block visit list) ------------
+# Both sides take float32 scores from the same inputs and round the output
+# once: float32 within 1e-5 (sums in another order), bfloat16 within one
+# output ulp (1e-2 at the outputs' magnitude, < 1).
+KV_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _kv_case(b, kv, g, hd, nb, bs, n_visit, dtype, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, kv, g, hd), generator=gen, device=dev).to(dtype)
+    cache_k = torch.randn((b, nb * bs, kv, hd), generator=gen, device=dev).to(dtype)
+    cache_v = torch.randn((b, nb * bs, kv, hd), generator=gen, device=dev).to(dtype)
+    ids = torch.randint(-1, nb, (b, kv, n_visit), generator=gen, device=dev)
+    ids[..., 0] = 0                       # at least one valid block
+    pos = torch.randint(bs // 2, nb * bs, (b,), generator=gen, device=dev)
+
+    def view(c):
+        return c.view(b, nb, bs, kv, hd).permute(0, 3, 1, 2, 4)
+    return q, view(cache_k), view(cache_v), ids, pos
+
+
+@pytest.mark.parametrize("b,kv,g,hd,nb,bs,n_visit", [
+    (2, 2, 4, 32, 4, 16, 2), (1, 1, 8, 64, 8, 32, 8), (2, 4, 2, 128, 4, 128, 3),
+    (4, 8, 4, 128, 16, 512, 4), (3, 2, 3, 256, 5, 200, 5), (1, 3, 7, 128, 9, 33, 9),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_kv_visit_kernel_matches_plain(dev, b, kv, g, hd, nb, bs, n_visit, dtype):
+    from repro_torch.kernels import kv_visit
+    args = _kv_case(b, kv, g, hd, nb, bs, n_visit, dtype, dev)
+    got = kv_visit.kv_visit_attention(*args)
+    want = ref.kv_visit_attention_ref(*args)
+    assert got.dtype == dtype
+    tol = KV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # strided token-major view == contiguous block-major copy, and repeatable
+    q, kb, vb, ids, pos = args
+    assert kv == 1 or not kb.is_contiguous()
+    assert torch.equal(got, kv_visit.kv_visit_attention(
+        q, kb.contiguous(), vb.contiguous(), ids, pos))
+    assert torch.equal(got, kv_visit.kv_visit_attention(*args))
+    assert ops.kernel_launches() == {"kv_visit_attention": 3}
+
+
+def test_kv_visit_kernel_masking_edge_cases(dev):
+    from repro_torch.kernels import kv_visit
+    q, kb, vb, _, _ = _kv_case(1, 2, 4, 64, 4, 16, 3, torch.float32, dev)
+    cases = [
+        (torch.tensor([[[2, 3, -1], [3, -1, -1]]], device=dev),
+         torch.tensor([5], device=dev)),        # no valid key: uniform average
+        (torch.tensor([[[-1, 1, -1], [-1, -1, 0]]], device=dev),
+         torch.tensor([20], device=dev)),       # padding first; partial block
+        (torch.tensor([[[0, 0, 0], [1, 0, 1]]], device=dev),
+         torch.tensor([63], device=dev)),       # repeated ids count twice
+    ]
+    for ids, pos in cases:
+        torch.testing.assert_close(
+            kv_visit.kv_visit_attention(q, kb, vb, ids, pos),
+            ref.kv_visit_attention_ref(q, kb, vb, ids, pos),
+            rtol=1e-5, atol=1e-5)
+
+
+def test_kv_visit_rejects_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels import kv_visit
+    q, kb, vb, ids, pos = _kv_case(1, 2, 4, 64, 4, 16, 2, torch.float32, dev)
+    with pytest.raises(TypeError):
+        kv_visit.kv_visit_attention(q.half(), kb.half(), vb.half(), ids, pos)
+    with pytest.raises(TypeError):
+        kv_visit.kv_visit_attention(q, kb.bfloat16(), vb, ids, pos)
+    q48, kb48, vb48, _, _ = _kv_case(1, 2, 4, 48, 4, 16, 2, torch.float32, dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        kv_visit.kv_visit_attention(q48, kb48, vb48, ids, pos)
+    q9, kb9, vb9, _, _ = _kv_case(1, 2, 9, 64, 4, 16, 2, torch.float32, dev)
+    with pytest.raises(ValueError, match="query rows"):
+        kv_visit.kv_visit_attention(q9, kb9, vb9, ids, pos)
+    strided = torch.zeros((*kb.shape[:4], 2 * kb.shape[4]), device=dev)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        kv_visit.kv_visit_attention(q, strided, vb, ids, pos)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(kv_block_prune=2, kv_block_size=4),
+                                dict(kv_block_prune=3, kv_block_size=4,
+                                     kv_prune_groups=2)],
+                         ids=["noprune", "prune2", "prune3-groups2"])
+def test_decode_step_kernel_matches_plain_and_cpu(dev, kw):
+    """The reduced Qwen3 decode, float32: the kernel backend on the card
+    against the plain backend on the card and the plain versions on the CPU
+    (logits atol 1e-4), with identical visit lists."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    cfg = get_config("qwen3_8b").reduced().replace(param_dtype="float32", **kw)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 20))
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(3))
+
+    def to(tree, d):
+        if isinstance(tree, dict):
+            return {k: to(v, d) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, d) for v in tree]
+        return tree.to(d)
+
+    def run(device, backend):
+        model = build_model(cfg, device=device, backend=backend)
+        p = to(params, model.device)
+        cache = model.init_cache(2, 32)
+        logits, visits = [], []
+        for t in range(toks.shape[1]):
+            lg, cache = model.decode_step(
+                p, cache, torch.as_tensor(toks[:, t:t + 1], device=model.device),
+                torch.full((2,), t, dtype=torch.int32, device=model.device),
+                visits=visits)
+            logits.append(lg.cpu())
+        return torch.stack(logits), [v[0].cpu() for v in visits]
+
+    got, got_v = run(dev, "auto")
+    for other, other_v in (run(dev, "torch"), run("cpu", "auto")):
+        torch.testing.assert_close(got, other, rtol=0, atol=1e-4)
+        assert all(torch.equal(a, b) for a, b in zip(got_v, other_v))
+    n_launch = ops.kernel_launches().get("kv_visit_attention", 0)
+    assert n_launch == (toks.shape[1] * cfg.n_layers if kw else 0)
