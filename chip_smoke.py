@@ -19,8 +19,9 @@ non-zero without printing a result:
                (``rowscan=True``: (10,000,384, 24) float32). Each build's time
                is printed.
   4. kernels — each hand kernel against its plain version at the main paths'
-               shapes (Q = 1 and Q = 128; the visit kernel at the visit list
-               the kd-tree prunes the 128-query workload to; the row-major
+               shapes (Q = 1 and Q = 128; the visit kernel at the visit lists
+               the kd-tree and the VA-file prune the 128-query workload to,
+               each row's real and padded visits printed; the row-major
                scan at Q = 1): masks exactly equal, aggregates within float32
                summation tolerance, repeated sums bit-identical; CUDA-event
                times of the kernel, its plain version and, where one exists,
@@ -38,7 +39,8 @@ non-zero without printing a result:
                and Mask at B in {8, 32}: they are host-bound, and B=128 would
                take minutes), and ``engine.query`` singles (ids and Count) on
                each. The same checks, and every visit and VA-filter kernel was
-               launched.
+               launched (each path's launches printed; the VA-file list's
+               visit row counts the vafile path's alone).
   7. server  — ``MDRQServer(max_batch=64).serve_all`` on 256 queries under
                Count, against ``query_batch``.
   8. rowscan — the row-major scan path: ``query_batch(method="rowscan")`` at
@@ -124,9 +126,9 @@ TIMING_REPS = 10
 # pairwise) over non-negative values: relative difference bound.
 AGG_SUM_RTOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 rate outside
-# the tensor cores, for the bound column. The VA filter's integer operations
-# are counted against the float32 rate too (the data sheet states no int32
-# rate outside the tensor cores).
+# the tensor cores, for the bound column. The VA filter's 32-bit logical
+# operations are counted against the float32 rate too (the data sheet states
+# no int32 rate outside the tensor cores).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
@@ -473,8 +475,9 @@ def rows_row(eng, queries, row, got_columnar):
 
 
 def visit_rows(eng, full, queries, row):
-    """Kernels 7-10: the visit kernel at the kd-tree's visit list for the
-    128-query workload (and one query's), the VA filter at Q = 128 and 1."""
+    """Kernels 7-10: the visit kernel at the kd-tree's and the VA-file's
+    visit lists for the 128-query workload (and the kd-tree's for one
+    query), the VA filter at Q = 128 and 1."""
     from repro_torch.core import blockindex
     from repro_torch.core.types import next_pow2
     from repro_torch.kernels import multi_scan, range_scan, ref, va_filter
@@ -516,6 +519,33 @@ def visit_rows(eng, full, queries, row):
         + 2 * m_pad * q_n * 4,
         2.0 * m_pad * TILE_N * real_v, None)
 
+    # -- multi_scan_visit at the VA-file's list for the same 128 queries --
+    va = eng.vafile
+    vq, vb = va._candidate_blocks_batch(full)
+    vqids_p, vbids_p = blockindex._pad_visit_list(vq, vb)
+    vqids = torch.as_tensor(vqids_p, device=dev)
+    vbids = torch.as_tensor(vbids_p, device=dev)
+    vdata = va.data_dev
+    vblocks = range_scan.blocks_view(vdata, TILE_N)
+    v_real, v_pad = int(vq.size), vqids.numel()
+    v_distinct = int(np.unique(vb).size)
+    print(f"  vafile visits for Q={q_n}: {v_real} (padded {v_pad}), "
+          f"{v_distinct} distinct of {n_pad // TILE_N} blocks", flush=True)
+    got = multi_scan.multi_scan_visit(vdata, vqids, vbids, lo, up, tile_n=TILE_N)
+    check(torch.equal(got, ref.multi_scan_blocks_ref(vblocks, vqids, vbids, lo,
+                                                     up)),
+          f"multi_scan_visit V={v_pad} (VA-file list) != plain")
+    del got
+    row("multi_scan_visit[vafile]", "src/repro_torch/kernels/csrc/visit.cu",
+        "src/repro/kernels/multi_scan.py:206", 0.0,
+        time_ms(lambda: multi_scan.multi_scan_visit(vdata, vqids, vbids, lo, up,
+                                                    tile_n=TILE_N)),
+        time_ms(lambda: ref.multi_scan_blocks_ref(vblocks, vqids, vbids, lo,
+                                                  up)),
+        v_distinct * m_pad * TILE_N * 4 + v_pad * TILE_N + v_pad * 8
+        + 2 * m_pad * q_n * 4,
+        2.0 * m_pad * TILE_N * v_real, None)
+
     # -- range_scan_visit: Q = 1, the kd-tree's survivors of one query --
     q0 = queries[0]
     b1 = np.nonzero(leaf[0].cpu().numpy())[0].astype(np.int32)
@@ -541,7 +571,8 @@ def visit_rows(eng, full, queries, row):
         2.0 * m_pad * TILE_N * b1.size, None)
 
     # -- multi_va_filter_packed: Q = 128; va_filter_packed: Q = 1 --
-    va = eng.vafile
+    # Operations: four 32-bit logical operations per (query, object, packed
+    # word) — the word-parallel test of 16 fields at once.
     packed = va.packed_dev
     w = packed.shape[0]
     clo, chi = (torch.as_tensor(a, device=dev)
@@ -557,7 +588,7 @@ def visit_rows(eng, full, queries, row):
         time_ms(lambda: va_filter.multi_va_filter_packed(packed, clo, chi, va.m)),
         time_ms(lambda: ref.multi_va_filter_packed_ref(packed, clo, chi, va.m)),
         w * n_pad * 4 + q_n * n_pad + 2 * clo.numel() * 4,
-        4.0 * q_n * n_pad * va.m, None)
+        4.0 * q_n * n_pad * w, None)
     c1, h1 = clo[:, :1].contiguous(), chi[:, :1].contiguous()
     got = va_filter.va_filter_packed(packed, c1, h1, va.m)
     check(torch.equal(got, ref.va_filter_packed_ref(packed, c1[:, 0], h1[:, 0],
@@ -568,7 +599,7 @@ def visit_rows(eng, full, queries, row):
         time_ms(lambda: va_filter.va_filter_packed(packed, c1, h1, va.m)),
         time_ms(lambda: ref.va_filter_packed_ref(packed, c1[:, 0], h1[:, 0],
                                                  va.m)),
-        w * n_pad * 4 + n_pad + 2 * c1.numel() * 4, 4.0 * n_pad * va.m, None)
+        w * n_pad * 4 + n_pad + 2 * c1.numel() * 4, 4.0 * n_pad * w, None)
 
 
 def result_specs() -> tuple:
@@ -649,12 +680,15 @@ def slice_phase(eng, eng_plain, oracle, queries):
     return topk_peak
 
 
-def index_phase(eng, eng_plain, oracle, queries):
+def index_phase(eng, eng_plain, oracle, queries) -> dict:
     """The two-phase paths by name, checked like the main path; warm qps as
-    in ``warm_qps``."""
+    in ``warm_qps``. Returns each path's kernel launches."""
     from repro_torch.core import Count
+    from repro_torch.kernels import ops
 
+    by_method = {}
     for method in INDEX_METHODS:
+        before = ops.kernel_launches()
         for b in sorted(set(INDEX_BATCH_SIZES) | set(HOST_BOUND_BATCH_SIZES)):
             qs = queries[:b]
             for spec in result_specs():
@@ -674,6 +708,12 @@ def index_phase(eng, eng_plain, oracle, queries):
                   f"{method} single {i}: ids != oracle")
             check(eng.query(queries[i], method=method, spec=Count())
                   == want.size, f"{method} single {i}: count != oracle")
+        after = ops.kernel_launches()
+        by_method[method] = {k: v - before.get(k, 0) for k, v in after.items()
+                             if v > before.get(k, 0)}
+        print(f"  kernel launches on the {method} path: {by_method[method]}",
+              flush=True)
+    return by_method
 
 
 def server_phase(eng, ds):
@@ -1311,11 +1351,15 @@ def main() -> int:
     index_kernels = [r for r in rows
                      if r not in scan_kernels and r not in rowscan_kernels]
 
-    def read_launches(kernels, path):
+    def read_launches(kernels, path, by_method=None):
         launches = ops.kernel_launches()
         print(f"  kernel launches on the {path}: {launches}")
         for r in kernels:
-            r["launches"] = launches.get(r["name"], 0)
+            # "multi_scan_visit[vafile]": the multi_scan_visit launches of
+            # the vafile path alone
+            name, _, method = r["name"].partition("[")
+            counts = by_method[method[:-1]] if method else launches
+            r["launches"] = counts.get(name, 0)
             check(r["launches"] > 0,
                   f"kernel {r['name']} was not launched on the {path}")
 
@@ -1327,8 +1371,8 @@ def main() -> int:
 
     with phase("index"):
         ops.reset_kernel_launches()
-        index_phase(eng, eng_plain, oracle, queries)
-        read_launches(index_kernels, "two-phase paths")
+        by_method = index_phase(eng, eng_plain, oracle, queries)
+        read_launches(index_kernels, "two-phase paths", by_method)
 
     with phase("server"):
         server_phase(eng, ds)

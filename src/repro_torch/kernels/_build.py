@@ -42,8 +42,10 @@ _SIGNATURES = {
     "mdrq_multi_scan_vertical": (_P, _LL, _I, _P, _I, _P, _P, _I, _P, _I, _I, _P),
     "mdrq_masked_fill": (_P, _P, _F, _LL, _I, _P, _I, _I, _P),
     "mdrq_masked_agg": (_P, _P, _I, _F, _LL, _I, _P, _I, _I, _P),
-    "mdrq_multi_scan_visit": (_P, _LL, _I, _P, _P, _LL, _P, _P, _I, _I, _P,
-                              _I, _P),
+    "mdrq_multi_scan_visit": (_P, _LL, _I, _P, _LL, _P, _P, _I, _I, _P, _I,
+                              _P),
+    "mdrq_multi_scan_visit_sorted": (_P, _LL, _I, _P, _P, _LL, _P, _P, _I, _I,
+                                     _P, _I, _P),
     "mdrq_multi_va_filter": (_P, _LL, _I, _I, _P, _P, _I, _P, _I, _I, _P),
     "mdrq_range_scan_rows": (_P, _LL, _I, _P, _P, _P, _I, _P),
     "mdrq_kv_visit_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

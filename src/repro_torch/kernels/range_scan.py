@@ -2,11 +2,13 @@
 
 Ports ``repro/kernels/range_scan.py`` (``range_scan_tiles``,
 ``range_scan_vertical``, ``range_scan_rows``, ``range_scan_visit``). On the
-card the columnar three are the Q=1 launch of a batched kernel body:
-``multi_scan_kernel`` and ``multi_scan_vertical_kernel`` in ``csrc/scan.cu``,
-``multi_scan_visit_kernel`` in ``csrc/visit.cu``; the row-major scan has its
-own, ``range_scan_rows_kernel`` in ``csrc/rows.cu``. On a CPU tensor each
-runs its plain version.
+card the columnar two are the Q=1 launch of a batched kernel body:
+``multi_scan_kernel`` and ``multi_scan_vertical_kernel`` in ``csrc/scan.cu``;
+the visit scan launches ``multi_scan_visit_kernel`` in ``csrc/visit.cu`` (the
+batched visit form is the block-major ``multi_scan_visit_sorted_kernel``
+there, scheduled by ``visit_schedule``); the row-major scan has its own,
+``range_scan_rows_kernel`` in ``csrc/rows.cu``. On a CPU tensor each runs its
+plain version.
 
 Layout and padding contract (``ops.prepare_columnar``): data is
 dimension-major ``(m_pad, n_pad)``; m pads to a multiple of ``SUBLANES`` with
@@ -28,6 +30,9 @@ SUBLANES = 8
 DEFAULT_TILE_N = 1024
 
 VEC = 4  # objects per CUDA thread (csrc/common.cuh)
+# Sorted visits one thread block of the block-major visit kernel takes
+# (csrc/visit.cu; the launcher halves it only when shared memory is short).
+VISITS_PER_BLOCK = 64
 
 
 def check_tiling(m_pad: int, n_pad: int, tile_n: int) -> None:
@@ -220,29 +225,53 @@ def blocks_view(data_cm: torch.Tensor, tile_n: int) -> torch.Tensor:
     return data_cm.reshape(m_pad, n_pad // tile_n, tile_n).permute(1, 0, 2)
 
 
+def visit_schedule(query_ids: torch.Tensor, block_ids: torch.Tensor,
+                   n_blocks: int, q_n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Block-major order of a (query, block) visit list -> (keys, order).
+
+    ``keys`` (int64) is ascending: each visit's clamped block id (negative
+    ids -> 0) times ``q_n`` plus its clamped query id; ``order[i]`` (int64)
+    is the list row of the i-th sorted visit. The sort runs on the visits'
+    device with no host read: the block-major visit kernel cuts the sorted
+    list into ranges of ``VISITS_PER_BLOCK`` visits, one per thread block,
+    and writes the mask of sorted visit i to row ``order[i]``. The sort need
+    not be stable: equal keys give equal rows.
+    """
+    b = block_ids.long().clamp(0, n_blocks - 1)
+    q = query_ids.long().clamp(0, q_n - 1)
+    return torch.sort(b * q_n + q)
+
+
 def visit_cuda(name: str, data_cm: torch.Tensor, query_ids, block_ids: torch.Tensor,
                lower: torch.Tensor, upper: torch.Tensor,
                tile_n: int) -> torch.Tensor:
-    """Launch ``multi_scan_visit_kernel`` -> (V, tile_n) int8; counted as
-    ``name``. ``query_ids=None`` reads bounds column 0 for every visit."""
+    """Launch a visit kernel -> (V, tile_n) int8; counted as ``name``.
+
+    With ``query_ids`` the list is sorted block-major (``visit_schedule``)
+    and ``multi_scan_visit_sorted_kernel`` reads each visited block once per
+    run of its visitors; ``query_ids=None`` (one query, bounds column 0)
+    launches ``multi_scan_visit_kernel``, one thread block per visit."""
     dev = data_cm.device
     data = cuda_input(data_cm, torch.float32, "data_cm", dev)
     m_pad, n_pad = data.shape
     n_visit = block_ids.shape[0]
-    ids = []
     for x, label in ((query_ids, "query_ids"), (block_ids, "block_ids")):
-        if x is None:
-            ids.append(None)
-            continue
-        if x.device != dev:
+        if x is not None and x.device != dev:
             raise ValueError(f"{label} is on {x.device}, data on {dev}")
-        ids.append(x.to(torch.int32).contiguous())
     lo = bounds_input(lower, "lower", data)
     up = bounds_input(upper, "upper", data)
+    q_n = lo.shape[1]
     out = torch.empty((n_visit, tile_n), dtype=torch.int8, device=dev)
-    if n_visit:
+    if not n_visit:
+        return out
+    if query_ids is None:
+        bids = block_ids.to(torch.int32).contiguous()
         _build.launch(name, "mdrq_multi_scan_visit", dev, data, n_pad, m_pad,
-                      ids[0], ids[1], n_visit, lo, up, lo.shape[1], tile_n, out)
+                      bids, n_visit, lo, up, q_n, tile_n, out)
+        return out
+    keys, order = visit_schedule(query_ids, block_ids, n_pad // tile_n, q_n)
+    _build.launch(name, "mdrq_multi_scan_visit_sorted", dev, data, n_pad,
+                  m_pad, keys, order, n_visit, lo, up, q_n, tile_n, out)
     return out
 
 

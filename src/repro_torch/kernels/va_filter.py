@@ -9,7 +9,9 @@ the exact data.
 Packing: word ``w`` of object ``i`` holds dims ``[16w, 16w+16)`` — dim
 ``16w + k`` occupies bits ``[2k, 2k+2)``. On a CUDA tensor each wrapper
 launches ``multi_va_filter_kernel`` in ``csrc/va_filter.cu`` (the single-query
-form is its Q=1 launch); on a CPU tensor it runs the plain version in
+form is its Q=1 launch), which tests the 16 fields of a word at once against
+four per-(query, word) cell masks that it builds in its prologue, so a launch
+needs no other device work; on a CPU tensor it runs the plain version in
 ``ref.py``.
 """
 from __future__ import annotations

@@ -11,7 +11,11 @@ that force smaller thread blocks, a 100-dimensional dataset whose tile must
 shrink to fit shared memory (and whose VA codes take 7 packed words), query
 counts that cross the kernels' 32-query groups, visit lists whose length is
 not a power of two and whose tail is padding (block -1), and the 64-bit
-offsets of a mask or a visit output past 2**31 bytes; the row-major scan at
+offsets of a mask or a visit output past 2**31 bytes; the block-major visit
+kernel's edge cases (a block every query visits, a list of padding only,
+fewer visits than one range, repeated pairs, m_pad in {8, 24, 104}) and the
+word-parallel VA filter at m in {1, 15, 16, 17, 19, 32, 33, 100} with
+nonzero fields beyond m and bounds outside the cells; the row-major scan at
 m in {3, 19, 100}; and the engine under a live delta (appended rows, base and
 delta tombstones) on every path. Masks must be exactly equal; sums within
 rtol=1e-5 (float32 sums in another order) and bit-identical across repeated
@@ -231,6 +235,99 @@ def test_visit_offsets_past_int32(dev):
     want = ref.multi_scan_blocks_ref(range_scan.blocks_view(data, tile_n),
                                      qids[rows], bids[rows], lo, up)
     assert torch.equal(got[rows], want)
+
+
+def _block_major_case(m, n_q, n_blocks, dev, seed=0):
+    """(m_pad, n_blocks * 1024) data of values in [0, 1) with +inf padding,
+    (m_pad, n_q) bounds around real records (each query open on half its
+    dims, so masks are neither empty nor full)."""
+    data, _, lo, up = _case(m, n_blocks * 1024 - 100, n_q, 1024, seed, dev)
+    return data, lo, up
+
+
+def _check_visits(data, qids, bids, lo, up):
+    got = multi_scan.multi_scan_visit(data, qids, bids, lo, up, tile_n=1024)
+    want = ref.multi_scan_blocks_ref(range_scan.blocks_view(data, 1024), qids,
+                                     bids, lo, up)
+    assert torch.equal(got, want)
+    assert torch.equal(got, multi_scan.multi_scan_visit(data, qids, bids, lo, up,
+                                                        tile_n=1024))
+    return want
+
+
+@pytest.mark.parametrize("case", ["one_block_every_query", "all_padding",
+                                  "fewer_than_a_range", "duplicates"])
+def test_block_major_visit_edge_cases(dev, case):
+    """The block-major visit kernel (ranges of 64 sorted visits): a block
+    every one of 128 queries visits (a run across two ranges), a list of
+    padding only (every visit block 0, query 0), V = 5 < 64, and repeated
+    (query, block) pairs scattered through the list."""
+    rng = np.random.default_rng(7)
+    n_q, n_blocks = 128, 20
+    data, lo, up = _block_major_case(19, n_q, n_blocks, dev)
+    if case == "one_block_every_query":
+        surv = rng.random((n_q, n_blocks)) < 0.2
+        surv[:, 11] = True
+        q, b = np.nonzero(surv)
+    elif case == "all_padding":
+        q, b = np.zeros(256, np.int32), np.full(256, -1, np.int32)
+        lo[:, 0], up[:, 0] = -1.0, 2.0   # query 0 takes block 0's real objects
+    elif case == "fewer_than_a_range":
+        q, b = rng.integers(0, n_q, 5), rng.integers(0, n_blocks, 5)
+    else:
+        q, b = rng.integers(0, 4, 300), rng.integers(0, 3, 300)
+    qids = torch.as_tensor(q.astype(np.int32), device=dev)
+    bids = torch.as_tensor(b.astype(np.int32), device=dev)
+    want = _check_visits(data, qids, bids, lo, up)
+    assert bool(want.any())
+    assert ops.kernel_launches() == {"multi_scan_visit": 2}
+
+
+@pytest.mark.parametrize("m", [8, 19, 100])
+def test_block_major_visit_row_groups(dev, m):
+    """m_pad in {8, 24, 104}: one to thirteen groups of eight rows held in
+    registers; at 104 the staged bounds of 64 visits take 53 KB of shared
+    memory."""
+    rng = np.random.default_rng(m)
+    n_q, n_blocks = 40, 12
+    data, lo, up = _block_major_case(m, n_q, n_blocks, dev, seed=m)
+    assert data.shape[0] == -(-m // 8) * 8
+    q, b = np.nonzero(rng.random((n_q, n_blocks)) < 0.5)
+    qids, bids = (torch.as_tensor(a.astype(np.int32), device=dev) for a in (q, b))
+    assert bool(_check_visits(data, qids, bids, lo, up).any())
+
+
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 19, 32, 33, 100])
+def test_va_filter_word_parallel_edges(dev, m):
+    """The word-parallel filter at dims that fill a word or spill one field
+    into the next, with nonzero fields beyond m, bounds at cells -1 and 4,
+    empty intervals and 70 queries (two groups of masks)."""
+    rng = np.random.default_rng(100 + m)
+    n, n_q = 20000, 70
+    codes = rng.integers(0, 4, size=(m, n)).astype(np.uint8)
+    w = -(-m // 16)
+    packed = np.zeros((w, 20 * 1024), np.int32)
+    packed[:, :n] = va_filter.pack_codes(codes)
+    keep = (1 << (2 * (m - (w - 1) * 16))) - 1
+    if keep != 0xFFFFFFFF:
+        junk = rng.integers(0, 2 ** 31, size=packed.shape[1], dtype=np.int64)
+        packed[-1] |= (junk & ~keep).astype(np.int32)
+    m_s = -(-m // 8) * 8
+    lo = np.full((m_s, n_q), -1, np.int32)
+    hi = np.full((m_s, n_q), 4, np.int32)
+    for q in range(n_q):
+        dims = rng.choice(m, size=min(m, 3), replace=False)
+        lo[dims, q] = rng.integers(-1, 4, size=dims.size)
+        hi[dims, q] = lo[dims, q] + rng.integers(-1, 3, size=dims.size)
+    pk = torch.as_tensor(packed, device=dev)
+    clo, chi = torch.as_tensor(lo, device=dev), torch.as_tensor(hi, device=dev)
+    got = va_filter.multi_va_filter_packed(pk, clo, chi, m)
+    want = ref.multi_va_filter_packed_ref(pk, clo, chi, m)
+    assert torch.equal(got, want) and bool(want.any()) and not bool(want.all())
+    for q in (0, 1, n_q - 1):
+        one = va_filter.va_filter_packed(pk, clo[:, q: q + 1].contiguous(),
+                                         chi[:, q: q + 1].contiguous(), m)
+        assert torch.equal(one, want[q])
 
 
 @pytest.mark.parametrize("spec", [Ids(), Count(), Mask(), TopK(k=10, dim=4),
