@@ -19,13 +19,23 @@ non-zero without printing a result:
                (``rowscan=True``: (10,000,384, 24) float32). Each build's time
                is printed.
   4. kernels — each hand kernel against its plain version at the main paths'
-               shapes (Q = 1 and Q = 128; the visit kernel at the visit lists
-               the kd-tree and the VA-file prune the 128-query workload to,
-               each row's real and padded visits printed; the row-major
-               scan at Q = 1): masks exactly equal, aggregates within float32
-               summation tolerance, repeated sums bit-identical; CUDA-event
-               times of the kernel, its plain version and, where one exists,
-               the one-call PyTorch equivalent.
+               shapes (Q = 1 and Q = 128, with the ``m`` and ``rows``
+               arguments ``ColumnarScan`` passes, each scan also timed
+               without them; the columnar scans also at the scan bucket
+               ``auto`` makes of the B = 128 batch and at Q = 8, printed
+               but not listed in the kernels line, whose launch counts are
+               per kernel; the visit kernel at the visit lists the kd-tree
+               and the VA-file prune the 128-query workload to, each row's
+               real and padded visits printed; the row-major scan at Q = 1):
+               masks exactly equal, aggregates within float32 summation
+               tolerance, repeated sums bit-identical; CUDA-event times of
+               the kernel, its plain version and, where one exists, the
+               one-call PyTorch equivalent. The bound of a compare kernel
+               counts two compares per object per (query or visit, real dim
+               its query constrains) — the full scan and the visits also one
+               finiteness test per object per real row read — at the compare
+               issue rate (``COMPARES_PER_CLOCK_PER_SM``; printed with its
+               source), the others' operations at ``PEAK_F32_OPS_PER_S``.
   5. slice   — the main path: ``MDRQEngine.query_batch(method="auto")`` on the
                GMRQB mixed workload at B in {1, 8, 32, 128} under Ids, Count,
                Mask, two TopK and three Agg specs, plus ``engine.query`` singles.
@@ -92,6 +102,7 @@ The last three lines are the kernel table (JSON), the nvidia-smi line, and
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import subprocess
@@ -131,6 +142,17 @@ AGG_SUM_RTOL = 1e-5
 # no int32 rate outside the tensor cores).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# The compare rows' operations term (the scan, visit and row-scan kernels):
+# two float32 compares per (object, query, compared dim), which issue at 64
+# results per clock per SM on compute capability 9.0 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput table, row "compare, minimum,
+# maximum"; the 67e12 above counts an FFMA, at 128 per clock, as two
+# operations). The rate is that times the card's SMs and its
+# ``clocks.max.sm`` as nvidia-smi reports it.
+COMPARES_PER_CLOCK_PER_SM = 64
+COMPARE_RATE_SOURCE = ("CUDA C++ Programming Guide, arithmetic instruction "
+                       "throughput, compute capability 9.0: compare, "
+                       "minimum, maximum = 64 per clock per SM")
 
 # -- the LM phase --
 LM_ARCH = "qwen3_8b"
@@ -182,6 +204,27 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def max_sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+@functools.cache
+def compare_rate() -> float:
+    """Float32 compares per second the card can issue (see
+    ``COMPARES_PER_CLOCK_PER_SM``); read once, printed with its source."""
+    mhz = max_sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = COMPARES_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    print(f"  compare rate: {COMPARES_PER_CLOCK_PER_SM} x {sms} SMs x "
+          f"{mhz:.0f} MHz (clocks.max.sm) = {rate:.4e}/s "
+          f"({COMPARE_RATE_SOURCE})", flush=True)
+    return rate
+
+
 def time_ms(fn, reps: int = TIMING_REPS) -> float:
     """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
     fn()
@@ -196,9 +239,10 @@ def time_ms(fn, reps: int = TIMING_REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float,
+             rate: float = PEAK_F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = ops / PEAK_F32_OPS_PER_S
+    t_ops = ops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -304,70 +348,31 @@ class Oracle:
 def kernel_phase(eng, queries):
     """Hold each kernel against its plain version; measure all three times."""
     from repro_torch.core import QueryBatch
-    from repro_torch.core.types import next_pow2
-    from repro_torch.kernels import multi_scan, range_scan, ref, reducers
+    from repro_torch.kernels import range_scan, ref, reducers
 
     data = eng.columnar.data_dev
     m_pad, n_pad = data.shape
     dev = data.device
     rows = []
 
-    def row(name, source, replaces, err, ms, plain_ms, nbytes, ops, lib_ms):
-        b, by = bound_ms(nbytes, ops)
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": 0, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
-                     "bound_by": by, "library_ms": lib_ms})
+    def row(name, source, replaces, err, ms, plain_ms, nbytes, ops, lib_ms,
+            rate=PEAK_F32_OPS_PER_S, shape=False):
+        # shape: another shape of a listed kernel, printed but not listed
+        # (the launch counts are per kernel, not per shape)
+        b, by = bound_ms(nbytes, ops, rate)
+        if not shape:
+            rows.append({"name": name, "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": 0,
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b, "bound_by": by, "library_ms": lib_ms})
         print(f"  {name}: err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b:.4f} ({by}) library_ms={lib_ms}", flush=True)
+              f"bound_ms={b:.4f} ({by}) library_ms={lib_ms}"
+              + (" (a shape of a listed kernel)" if shape else ""), flush=True)
 
     full = QueryBatch.from_queries(queries[:128])
     lo, up = (torch.as_tensor(a, device=dev)
               for a in full.bounds_columnar(m_pad, dtype=np.float32))
-    partial = QueryBatch.from_queries(
-        [q for q in queries[:128] if not q.is_complete_match])
-    q_pad = next_pow2(len(partial))
-    ids_np = partial.padded_dim_ids(q_pad)
-    vlo, vup = (torch.as_tensor(a, device=dev)
-                for a in partial.bounds_columnar(m_pad, q_pad, np.float32))
-    ids = torch.as_tensor(ids_np, device=dev)
-    print(f"  shapes: m_pad={m_pad} n_pad={n_pad} Q(scan)={full.lower.shape[0]} "
-          f"Q(vertical)={q_pad} D_max={ids_np.shape[1]}", flush=True)
-
-    # -- multi_scan_tiles: Q = 1 and Q = 128 --
-    for q_n in (1, 128):
-        got = multi_scan.multi_scan_tiles(data, lo[:, :q_n].contiguous(),
-                                          up[:, :q_n].contiguous(), tile_n=TILE_N)
-        want = ref.multi_scan_ref(data, lo[:, :q_n], up[:, :q_n])
-        check(torch.equal(got, want), f"multi_scan_tiles Q={q_n} != plain")
-    masks = multi_scan.multi_scan_tiles(data, lo, up, tile_n=TILE_N)
-    q_n = masks.shape[0]
-    row("multi_scan_tiles", "src/repro_torch/kernels/csrc/scan.cu",
-        "src/repro/kernels/multi_scan.py:73", 0.0,
-        time_ms(lambda: multi_scan.multi_scan_tiles(data, lo, up, tile_n=TILE_N)),
-        time_ms(lambda: ref.multi_scan_ref(data, lo, up)),
-        m_pad * n_pad * 4 + q_n * n_pad + 2 * m_pad * q_n * 4,
-        2.0 * m_pad * q_n * n_pad, None)
-
-    # -- multi_scan_vertical: Q = 1 and the main path's vertical bucket --
-    one = multi_scan.multi_scan_vertical(data, ids[:1], vlo[:, :1].contiguous(),
-                                         vup[:, :1].contiguous(), tile_n=TILE_N)
-    check(torch.equal(one, ref.multi_scan_vertical_ref(data, ids[:1], vlo[:, :1],
-                                                       vup[:, :1])),
-          "multi_scan_vertical Q=1 != plain")
-    got = multi_scan.multi_scan_vertical(data, ids, vlo, vup, tile_n=TILE_N)
-    check(torch.equal(got, ref.multi_scan_vertical_ref(data, ids, vlo, vup)),
-          f"multi_scan_vertical Q={q_pad} != plain")
-    union = np.unique(ids_np).size
-    listed = sum(np.unique(r).size for r in ids_np)
-    row("multi_scan_vertical", "src/repro_torch/kernels/csrc/scan.cu",
-        "src/repro/kernels/multi_scan.py:144", 0.0,
-        time_ms(lambda: multi_scan.multi_scan_vertical(data, ids, vlo, vup,
-                                                       tile_n=TILE_N)),
-        time_ms(lambda: ref.multi_scan_vertical_ref(data, ids, vlo, vup)),
-        union * n_pad * 4 + q_pad * n_pad + ids.numel() * 4 + 2 * m_pad * q_pad * 4,
-        2.0 * listed * n_pad, None)
-    del got, one
+    masks = scan_rows(eng, queries, row)
 
     # -- masked_fill_tiles (TopK's front half) on the Q = 128 scan masks --
     values = data[3]
@@ -417,35 +422,187 @@ def kernel_phase(eng, queries):
         None)
     del masks, mask_bool
 
-    # -- range_scan_tiles / range_scan_vertical: Q = 1 --
     lo1, up1 = lo[:, :1].contiguous(), up[:, :1].contiguous()
-    got = range_scan.range_scan_tiles(data, lo1, up1, tile_n=TILE_N)
-    check(torch.equal(got, ref.range_scan_ref(data, lo1, up1)),
-          "range_scan_tiles != plain")
-    row("range_scan_tiles", "src/repro_torch/kernels/csrc/scan.cu",
-        "src/repro/kernels/range_scan.py:71", 0.0,
-        time_ms(lambda: range_scan.range_scan_tiles(data, lo1, up1, tile_n=TILE_N)),
-        time_ms(lambda: ref.range_scan_ref(data, lo1, up1)),
-        m_pad * n_pad * 4 + n_pad + 2 * m_pad * 4, 2.0 * m_pad * n_pad, None)
-    pq = next(q for q in queries if not q.is_complete_match)
-    dims = torch.as_tensor(np.nonzero(pq.dims_mask)[0].astype(np.int32), device=dev)
-    plo, pup = (torch.as_tensor(a, device=dev) for a in
-                QueryBatch.from_queries([pq]).bounds_columnar(m_pad, dtype=np.float32))
-    d = dims.long()
-    got = range_scan.range_scan_vertical(data, dims, plo, pup, tile_n=TILE_N)
-    check(torch.equal(got, ref.range_scan_ref(data[d], plo[d, 0], pup[d, 0])),
-          "range_scan_vertical != plain")
-    row("range_scan_vertical", "src/repro_torch/kernels/csrc/scan.cu",
-        "src/repro/kernels/range_scan.py:142", 0.0,
-        time_ms(lambda: range_scan.range_scan_vertical(data, dims, plo, pup,
-                                                       tile_n=TILE_N)),
-        time_ms(lambda: ref.range_scan_ref(data[d], plo[d, 0], pup[d, 0])),
-        dims.numel() * n_pad * 4 + n_pad + dims.numel() * 12,
-        2.0 * dims.numel() * n_pad, None)
     rows_row(eng, queries, row, got_columnar=range_scan.range_scan_tiles(
-        data, lo1, up1, tile_n=TILE_N))
+        data, lo1, up1, tile_n=TILE_N, **scan_rows_kw(eng, queries[:1])))
     visit_rows(eng, full, queries, row)
     return rows
+
+
+
+def scan_rows_kw(eng, qs, ids_np=None) -> dict:
+    """What ``ColumnarScan`` passes the scan wrappers beyond the reference's
+    arguments for the queries ``qs``: ``m=`` and ``rows=`` (the dims any
+    query constrains) to the full scan, ``rows=`` (the distinct dims of
+    ``ids_np``) to the vertical one."""
+    from repro_torch.core import QueryBatch
+    if ids_np is None:
+        return {"m": eng.columnar.m,
+                "rows": int(QueryBatch.from_queries(qs).dims_mask.any(axis=0).sum())}
+    return {"rows": int(np.unique(ids_np).size)}
+
+
+def compared_dims(lo, up, m: int) -> np.ndarray:
+    """Per query, the real dims its full-scan bounds constrain: a dim whose
+    bounds are the float32 extrema is open (its compare holds exactly for
+    the finite values, which one test per object settles)."""
+    fmax = float(np.finfo(np.float32).max)
+    lo, up = lo[:m].cpu().numpy(), up[:m].cpu().numpy()
+    return (~((lo == -fmax) & (up == fmax))).sum(axis=0)
+
+
+def scan_compares(lo, up, m: int) -> tuple[int, int]:
+    """(constrained, all) (query, real dim) pairs of full-scan bounds."""
+    return int(compared_dims(lo, up, m).sum()), m * lo.shape[1]
+
+
+def scan_rows(eng, queries, row):
+    """Kernels 1, 2, 5 and 6, the columnar scans: ``multi_scan_tiles`` at the
+    first 128 queries (all their bounds), at the scan bucket ``auto`` makes
+    of the B = 128 mixed batch and at Q = 8; ``multi_scan_vertical`` at the
+    partial-match queries among the first 128 (pow2-padded: the B = 128
+    vertical bucket) and among the first 8 partial ones; both at Q = 1.
+    Each against its plain version (masks exactly equal), then timed; the
+    bucket shapes are printed, not listed (``shape=True``). Operations: two
+    compares per object per (query, distinct compared real dim), plus one
+    finiteness test per object per real row for the full scan, at
+    ``compare_rate()``. Each full or vertical scan is also timed without
+    the ``m`` / ``rows`` hints (the reference's call). Returns the Q = 128
+    full-scan masks."""
+    from repro_torch.core import Count, QueryBatch
+    from repro_torch.core.scan import bucketed_batch_bounds
+    from repro_torch.core.types import next_pow2
+    from repro_torch.kernels import multi_scan, range_scan, ref
+
+    data = eng.columnar.data_dev
+    m = eng.columnar.m
+    m_pad, n_pad = data.shape
+    dev = data.device
+    rate = compare_rate()
+    scan_src = "src/repro_torch/kernels/csrc/scan.cu"
+
+    eng.query_batch(queries[:128], method="auto", spec=Count())
+    plan = eng.last_batch_stats.methods
+    scan_b = [q for q, meth in zip(queries[:128], plan) if meth == "scan"]
+    partial = [q for q in queries[:128] if not q.is_complete_match]
+    vert_b = [q for q, meth in zip(queries[:128], plan)
+              if meth == "scan_vertical"]
+    print(f"  auto at B=128: {len(scan_b)} scan, {len(vert_b)} scan_vertical "
+          f"(the vertical bucket is the 128-query row's batch: "
+          f"{vert_b == partial})", flush=True)
+
+    def tiles_row(name, qs, bucket, shape=False):
+        if bucket:
+            _, lo, up = bucketed_batch_bounds(QueryBatch.from_queries(qs),
+                                              m_pad, data.dtype, dev)
+        else:
+            lo, up = (torch.as_tensor(a, device=dev) for a in
+                      QueryBatch.from_queries(qs).bounds_columnar(m_pad))
+        q_n = lo.shape[1]
+        kw = scan_rows_kw(eng, qs)
+        got = multi_scan.multi_scan_tiles(data, lo, up, tile_n=TILE_N, **kw)
+        check(torch.equal(got, ref.multi_scan_ref(data, lo, up)),
+              f"{name} Q={q_n} != plain")
+        pairs, every = scan_compares(lo, up, m)
+        print(f"  {name}: Q={q_n}, {pairs} of {every} (query, real dim) "
+              f"pairs constrained; every real dim compared would bound it at "
+              f"{2.0 * every * n_pad / rate * 1e3:.4f} ms", flush=True)
+        row(name, scan_src, "src/repro/kernels/multi_scan.py:73", 0.0,
+            time_ms(lambda: multi_scan.multi_scan_tiles(data, lo, up,
+                                                        tile_n=TILE_N, **kw)),
+            time_ms(lambda: ref.multi_scan_ref(data, lo, up)),
+            m * n_pad * 4 + q_n * n_pad + 2 * m_pad * q_n * 4,
+            (2.0 * pairs + m) * n_pad, None, rate, shape)
+        no_hint(name, kw, lambda: multi_scan.multi_scan_tiles(
+            data, lo, up, tile_n=TILE_N))
+        return got
+
+    def no_hint(name, kw, fn):
+        hints = ", ".join(f"{k}={v}" for k, v in kw.items())
+        print(f"  {name} without {hints}: ms={time_ms(fn):.4f}", flush=True)
+
+    def vertical_row(name, qs, shape=False):
+        batch = QueryBatch.from_queries(qs)
+        q_pad, lo, up = bucketed_batch_bounds(batch, m_pad, data.dtype, dev)
+        ids_np = batch.padded_dim_ids(q_pad)
+        ids = torch.as_tensor(ids_np, device=dev)
+        vkw = scan_rows_kw(eng, qs, ids_np)
+        got = multi_scan.multi_scan_vertical(data, ids, lo, up, tile_n=TILE_N,
+                                             **vkw)
+        check(torch.equal(got, ref.multi_scan_vertical_ref(data, ids, lo, up)),
+              f"{name} Q={q_pad} != plain")
+        del got
+        union = np.unique(ids_np).size
+        listed = sum(np.unique(r).size for r in ids_np)
+        print(f"  {name}: Q={q_pad}, D_max={ids_np.shape[1]}, {listed} "
+              f"distinct (query, dim) pairs, {union} rows", flush=True)
+        row(name, scan_src, "src/repro/kernels/multi_scan.py:144", 0.0,
+            time_ms(lambda: multi_scan.multi_scan_vertical(data, ids, lo, up,
+                                                           tile_n=TILE_N,
+                                                           **vkw)),
+            time_ms(lambda: ref.multi_scan_vertical_ref(data, ids, lo, up)),
+            union * n_pad * 4 + q_pad * n_pad + ids.numel() * 4
+            + 2 * m_pad * q_pad * 4,
+            2.0 * listed * n_pad, None, rate, shape)
+        no_hint(name, vkw, lambda: multi_scan.multi_scan_vertical(
+            data, ids, lo, up, tile_n=TILE_N))
+
+    # -- multi_scan_tiles: the first 128 queries; Q = 1 checked here too --
+    one = QueryBatch.from_queries(queries[:1])
+    lo1, up1 = (torch.as_tensor(a, device=dev)
+                for a in one.bounds_columnar(m_pad))
+    kw = scan_rows_kw(eng, queries[:1])
+    check(torch.equal(multi_scan.multi_scan_tiles(data, lo1, up1,
+                                                  tile_n=TILE_N, **kw),
+                      ref.multi_scan_ref(data, lo1, up1)),
+          "multi_scan_tiles Q=1 != plain")
+    masks = tiles_row("multi_scan_tiles", queries[:128], bucket=False)
+    if scan_b:
+        tiles_row("multi_scan_tiles[B=128 scan bucket]", scan_b, bucket=True,
+                  shape=True)
+    tiles_row("multi_scan_tiles[Q=8]", queries[:8], bucket=False, shape=True)
+
+    # -- multi_scan_vertical: Q = 1 checked, the B = 128 bucket, Q = 8 --
+    pq = partial[0]
+    b1 = QueryBatch.from_queries([pq])
+    ids1 = torch.as_tensor(b1.padded_dim_ids(), device=dev)
+    vlo, vup = (torch.as_tensor(a, device=dev)
+                for a in b1.bounds_columnar(m_pad))
+    check(torch.equal(multi_scan.multi_scan_vertical(data, ids1, vlo, vup,
+                                                     tile_n=TILE_N),
+                      ref.multi_scan_vertical_ref(data, ids1, vlo, vup)),
+          "multi_scan_vertical Q=1 != plain")
+    vertical_row("multi_scan_vertical", partial)
+    vertical_row("multi_scan_vertical[Q=8]", partial[:8], shape=True)
+
+    # -- range_scan_tiles / range_scan_vertical: Q = 1 --
+    got = range_scan.range_scan_tiles(data, lo1, up1, tile_n=TILE_N, **kw)
+    check(torch.equal(got, ref.range_scan_ref(data, lo1, up1)),
+          "range_scan_tiles != plain")
+    pairs, _ = scan_compares(lo1, up1, m)
+    row("range_scan_tiles", scan_src, "src/repro/kernels/range_scan.py:71",
+        0.0,
+        time_ms(lambda: range_scan.range_scan_tiles(data, lo1, up1,
+                                                    tile_n=TILE_N, **kw)),
+        time_ms(lambda: ref.range_scan_ref(data, lo1, up1)),
+        m * n_pad * 4 + n_pad + 2 * m_pad * 4, (2.0 * pairs + m) * n_pad,
+        None, rate)
+    no_hint("range_scan_tiles", kw, lambda: range_scan.range_scan_tiles(
+        data, lo1, up1, tile_n=TILE_N))
+    dims = torch.as_tensor(np.nonzero(pq.dims_mask)[0].astype(np.int32),
+                           device=dev)
+    d = dims.long()
+    got = range_scan.range_scan_vertical(data, dims, vlo, vup, tile_n=TILE_N)
+    check(torch.equal(got, ref.range_scan_ref(data[d], vlo[d, 0], vup[d, 0])),
+          "range_scan_vertical != plain")
+    row("range_scan_vertical", scan_src, "src/repro/kernels/range_scan.py:142",
+        0.0,
+        time_ms(lambda: range_scan.range_scan_vertical(data, dims, vlo, vup,
+                                                       tile_n=TILE_N)),
+        time_ms(lambda: ref.range_scan_ref(data[d], vlo[d, 0], vup[d, 0])),
+        dims.numel() * n_pad * 4 + n_pad + dims.numel() * 12,
+        2.0 * dims.numel() * n_pad, None, rate)
+    return masks
 
 
 def rows_row(eng, queries, row, got_columnar):
@@ -471,13 +628,23 @@ def rows_row(eng, queries, row, got_columnar):
         time_ms(lambda: range_scan.range_scan_rows(data, lo, up,
                                                    tile_rows=rs.tile_rows)),
         time_ms(lambda: ref.range_scan_rows_ref(data, lo, up)),
-        n_pad * m_pad * 4 + n_pad + 2 * m_pad * 4, 2.0 * m_pad * n_pad, None)
+        n_pad * m_pad * 4 + n_pad + 2 * m_pad * 4,
+        (2.0 * int(compared_dims(lo.reshape(-1, 1), up.reshape(-1, 1),
+                                 rs.m)[0]) + rs.m) * n_pad, None,
+        compare_rate())
 
 
 def visit_rows(eng, full, queries, row):
     """Kernels 7-10: the visit kernel at the kd-tree's and the VA-file's
     visit lists for the 128-query workload (and the kd-tree's for one
-    query), the VA filter at Q = 128 and 1."""
+    query), the VA filter at Q = 128 and 1.
+
+    The visit rows are bounded as the full scan is: bytes, each distinct
+    visited block's real rows read once and the whole padded output written
+    once; operations, two compares per object of each real visit per real
+    dim its query constrains, plus one finiteness test per object per real
+    row of each distinct visited block (what rejects +inf and NaN where the
+    query leaves a dim open), at ``compare_rate()``."""
     from repro_torch.core import blockindex
     from repro_torch.core.types import next_pow2
     from repro_torch.kernels import multi_scan, range_scan, ref, va_filter
@@ -502,22 +669,24 @@ def visit_rows(eng, full, queries, row):
               for a in full.bounds_columnar(m_pad, q_n, np.float32))
     n_vis = qids.numel()
     distinct = int(np.unique(bids_np).size)
+    m = kd.m
+    cdims = compared_dims(lo, up, m)
+    pairs = int(cdims[qids_np].sum())
     print(f"  kdtree visits for Q={q_n}: {real_v} (padded {n_vis}), "
-          f"{distinct} distinct of {n_pad // TILE_N} blocks", flush=True)
+          f"{distinct} distinct of {n_pad // TILE_N} blocks; {pairs} "
+          f"(visit, constrained real dim) pairs of {real_v * m}", flush=True)
     got = multi_scan.multi_scan_visit(data, qids, bids, lo, up, tile_n=TILE_N)
     check(torch.equal(got, ref.multi_scan_blocks_ref(blocks, qids, bids, lo, up)),
           f"multi_scan_visit V={n_vis} != plain")
     del got
-    # bound: each distinct visited block read once, the whole padded output
-    # written once; two compares per element of the real visits
     row("multi_scan_visit", "src/repro_torch/kernels/csrc/visit.cu",
         "src/repro/kernels/multi_scan.py:206", 0.0,
         time_ms(lambda: multi_scan.multi_scan_visit(data, qids, bids, lo, up,
                                                     tile_n=TILE_N)),
         time_ms(lambda: ref.multi_scan_blocks_ref(blocks, qids, bids, lo, up)),
-        distinct * m_pad * TILE_N * 4 + n_vis * TILE_N + n_vis * 8
+        distinct * m * TILE_N * 4 + n_vis * TILE_N + n_vis * 8
         + 2 * m_pad * q_n * 4,
-        2.0 * m_pad * TILE_N * real_v, None)
+        (2.0 * pairs + m * distinct) * TILE_N, None, compare_rate())
 
     # -- multi_scan_visit at the VA-file's list for the same 128 queries --
     va = eng.vafile
@@ -529,8 +698,10 @@ def visit_rows(eng, full, queries, row):
     vblocks = range_scan.blocks_view(vdata, TILE_N)
     v_real, v_pad = int(vq.size), vqids.numel()
     v_distinct = int(np.unique(vb).size)
+    v_pairs = int(cdims[vq].sum())
     print(f"  vafile visits for Q={q_n}: {v_real} (padded {v_pad}), "
-          f"{v_distinct} distinct of {n_pad // TILE_N} blocks", flush=True)
+          f"{v_distinct} distinct of {n_pad // TILE_N} blocks; {v_pairs} "
+          f"(visit, constrained real dim) pairs of {v_real * m}", flush=True)
     got = multi_scan.multi_scan_visit(vdata, vqids, vbids, lo, up, tile_n=TILE_N)
     check(torch.equal(got, ref.multi_scan_blocks_ref(vblocks, vqids, vbids, lo,
                                                      up)),
@@ -542,9 +713,9 @@ def visit_rows(eng, full, queries, row):
                                                     tile_n=TILE_N)),
         time_ms(lambda: ref.multi_scan_blocks_ref(vblocks, vqids, vbids, lo,
                                                   up)),
-        v_distinct * m_pad * TILE_N * 4 + v_pad * TILE_N + v_pad * 8
+        v_distinct * m * TILE_N * 4 + v_pad * TILE_N + v_pad * 8
         + 2 * m_pad * q_n * 4,
-        2.0 * m_pad * TILE_N * v_real, None)
+        (2.0 * v_pairs + m * v_distinct) * TILE_N, None, compare_rate())
 
     # -- range_scan_visit: Q = 1, the kd-tree's survivors of one query --
     q0 = queries[0]
@@ -558,17 +729,18 @@ def visit_rows(eng, full, queries, row):
     check(torch.equal(got, ref.multi_scan_blocks_ref(blocks, zeros, ids1, lo1,
                                                      up1)),
           "range_scan_visit != plain")
-    print(f"  kdtree visits for query 0 ({q0.n_queried_dims} dims): {b1.size} "
-          f"(padded {ids1.numel()})", flush=True)
+    print(f"  kdtree visits for query 0 ({q0.n_queried_dims} dims, "
+          f"{int(cdims[0])} constrained): {b1.size} (padded {ids1.numel()})",
+          flush=True)
     row("range_scan_visit", "src/repro_torch/kernels/csrc/visit.cu",
         "src/repro/kernels/range_scan.py:248", 0.0,
         time_ms(lambda: range_scan.range_scan_visit(data, ids1, lo1, up1,
                                                     tile_n=TILE_N)),
         time_ms(lambda: ref.multi_scan_blocks_ref(blocks, zeros, ids1, lo1,
                                                   up1)),
-        b1.size * m_pad * TILE_N * 4 + ids1.numel() * (TILE_N + 4)
+        b1.size * m * TILE_N * 4 + ids1.numel() * (TILE_N + 4)
         + 2 * m_pad * 4,
-        2.0 * m_pad * TILE_N * b1.size, None)
+        (2.0 * int(cdims[0]) + m) * TILE_N * b1.size, None, compare_rate())
 
     # -- multi_va_filter_packed: Q = 128; va_filter_packed: Q = 1 --
     # Operations: four 32-bit logical operations per (query, object, packed
@@ -1344,7 +1516,7 @@ def main() -> int:
         rows = kernel_phase(eng, queries)
 
     # The kernels of each path, counted over that path's phase alone.
-    scan_kernels = [r for r in rows if r["name"] in (
+    scan_kernels = [r for r in rows if r["name"].partition("[")[0] in (
         "multi_scan_tiles", "multi_scan_vertical", "masked_fill_tiles",
         "masked_agg_tiles", "range_scan_tiles", "range_scan_vertical")]
     rowscan_kernels = [r for r in rows if r["name"] == "range_scan_rows"]

@@ -175,8 +175,9 @@ def launch_visits_batch(data_dev: torch.Tensor, query_ids: np.ndarray,
         # this corner pays one delta-only launch (none on a frozen dataset).
         lo_d, up_d = ops.batch_bounds_device(batch, dcm.shape[0], dcm.dtype,
                                              dev, q_pad=_next_pow2(len(batch)))
-        payload = ops.multi_scan_reduce(dcm, lo_d, up_d, spec=spec,
-                                        tile_n=tile_n, backend=backend)
+        payload = ops.multi_scan_reduce(
+            dcm, lo_d, up_d, spec=spec, tile_n=tile_n, m=dview.m,
+            rows=int(batch.dims_mask.any(axis=0).sum()), backend=backend)
         merge = dview.merge_finalizer(spec, lambda _host: base, n_queries)
         return payload, lambda host_payload: merge((None, host_payload))
     tomb = None
@@ -204,7 +205,8 @@ def launch_visits_batch(data_dev: torch.Tensor, query_ids: np.ndarray,
         torch.as_tensor(bids_p, device=dev),
         torch.as_tensor((bids_p >= 0).astype(np.int32), device=dev),
         torch.as_tensor(visit_index, device=dev), lo_d, up_d, dcm, tomb,
-        spec=spec, tile_n=tile_n, n_queries=q_bucket, backend=backend)
+        spec=spec, tile_n=tile_n, n_queries=q_bucket,
+        m=dview.m if dcm is not None else None, backend=backend)
     vctx = T.VisitHostCtx(
         qids=query_ids.astype(np.int32), bids=block_ids.astype(np.int32),
         tile_n=tile_n, n=n, n_queries=n_queries, perm=perm)

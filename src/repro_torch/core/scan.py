@@ -66,6 +66,7 @@ class ColumnarScan:
     def _mask_device(self, q: T.RangeQuery) -> torch.Tensor:
         qlo, qhi = self._bounds(q)
         return ops.range_scan(self.data_dev, qlo, qhi, tile_n=self.tile_n,
+                              m=self.m, rows=q.n_queried_dims,
                               backend=self.backend)
 
     def _mask_partial_device(self, dims: np.ndarray, q: T.RangeQuery
@@ -137,15 +138,18 @@ class ColumnarScan:
             dcm = delta.device_cm(self.tile_n, dev)
             tomb = delta.base_tomb_dev(self.data_dev.shape[1], dev)
         if partial:
-            dim_ids = ops.dim_ids_device(batch.padded_dim_ids(q_pad),
-                                         self.m_pad, dev)
+            ids = batch.padded_dim_ids(q_pad)
+            dim_ids = ops.dim_ids_device(ids, self.m_pad, dev)
             payload = ops.multi_scan_vertical_reduce(
                 self.data_dev, dim_ids, lo, up, dcm, tomb, spec=spec,
-                tile_n=self.tile_n, backend=self.backend)
+                tile_n=self.tile_n, m=self.m, rows=int(np.unique(ids).size),
+                backend=self.backend)
         else:
-            payload = ops.multi_scan_reduce(self.data_dev, lo, up, dcm, tomb,
-                                            spec=spec, tile_n=self.tile_n,
-                                            backend=self.backend)
+            payload = ops.multi_scan_reduce(
+                self.data_dev, lo, up, dcm, tomb, spec=spec,
+                tile_n=self.tile_n, m=self.m,
+                rows=int(batch.dims_mask.any(axis=0).sum()),
+                backend=self.backend)
         n_q, n = len(batch), self.n
 
         def finalize(host_payload):

@@ -38,8 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of every exported launcher (all return a cudaError_t as int).
 _SIGNATURES = {
-    "mdrq_multi_scan": (_P, _LL, _I, _P, _P, _I, _P, _I, _I, _P),
-    "mdrq_multi_scan_vertical": (_P, _LL, _I, _P, _I, _P, _P, _I, _P, _I, _I, _P),
+    "mdrq_scan": (_P, _LL, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I, _P),
     "mdrq_masked_fill": (_P, _P, _F, _LL, _I, _P, _I, _I, _P),
     "mdrq_masked_agg": (_P, _P, _I, _F, _LL, _I, _P, _I, _I, _P),
     "mdrq_multi_scan_visit": (_P, _LL, _I, _P, _LL, _P, _P, _I, _I, _P, _I,

@@ -16,10 +16,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.range_scan import (DEFAULT_TILE_N, check_visits,
-                                            blocks_view, check_tiling,
-                                            scan_cuda, vertical_cuda,
-                                            visit_cuda)
+from repro_torch.kernels.range_scan import (DEFAULT_TILE_N, blocks_view,
+                                            check_tiling, check_visits,
+                                            compared_rows, scan_cuda,
+                                            vertical_cuda, visit_cuda)
 
 
 def multi_scan_tiles(
@@ -28,12 +28,19 @@ def multi_scan_tiles(
     upper: torch.Tensor,
     *,
     tile_n: int = DEFAULT_TILE_N,
+    m: int | None = None,
+    rows: int | None = None,
 ) -> torch.Tensor:
     """Fused full scan of a query batch.
 
     Args:
       data_cm: (m_pad, n_pad) columnar data; m_pad % 8 == 0, n_pad % tile_n == 0.
       lower, upper: (m_pad, Q) finite bounds, one column per query.
+      m: compare rows [0, m) only (the real dims; the default compares all
+        m_pad rows, which gives the same masks under the padding contract).
+      rows: how many dims any query of the batch constrains, where the
+        caller knows it (it sizes the kernel's registers; any value gives
+        the same masks, one too low costs further passes over the data).
 
     Returns:
       (Q, n_pad) int8 match masks, row q = query q.
@@ -45,8 +52,9 @@ def multi_scan_tiles(
         raise ValueError(f"bounds {tuple(lower.shape)}, {tuple(upper.shape)} "
                          f"are not ({m_pad}, Q >= 1)")
     if not data_cm.is_cuda:
-        return _ref.multi_scan_ref(data_cm, lower, upper)
-    return scan_cuda("multi_scan_tiles", data_cm, lower, upper)
+        r = compared_rows(m, m_pad)
+        return _ref.multi_scan_ref(data_cm[:r], lower[:r], upper[:r])
+    return scan_cuda("multi_scan_tiles", data_cm, lower, upper, m, rows)
 
 
 def multi_scan_vertical(
@@ -56,6 +64,7 @@ def multi_scan_vertical(
     upper: torch.Tensor,
     *,
     tile_n: int = DEFAULT_TILE_N,
+    rows: int | None = None,
 ) -> torch.Tensor:
     """Batched partial-match vertical scan.
 
@@ -66,6 +75,9 @@ def multi_scan_vertical(
         query's own dims (AND is idempotent); a match-all query uses dim 0,
         whose bounds column carries dtype extrema and accepts everything.
       lower, upper: (m_pad, Q) finite bounds (indexed by dim_ids).
+      rows: how many distinct dims ``dim_ids`` lists, where the caller
+        knows it (it sizes the kernel's registers; any value gives the same
+        masks, one too low costs further passes over the data).
 
     Returns:
       (Q, n_pad) int8 match masks over each query's constrained dims.
@@ -81,7 +93,8 @@ def multi_scan_vertical(
                          f"!= ({m_pad}, {q_n})")
     if not data_cm.is_cuda:
         return _ref.multi_scan_vertical_ref(data_cm, dim_ids, lower, upper)
-    return vertical_cuda("multi_scan_vertical", data_cm, dim_ids, lower, upper)
+    return vertical_cuda("multi_scan_vertical", data_cm, dim_ids, lower, upper,
+                         rows)
 
 
 def multi_scan_visit(

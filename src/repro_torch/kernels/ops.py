@@ -182,25 +182,27 @@ def dim_ids_device(dim_ids: np.ndarray, m_pad: int, device) -> torch.Tensor:
 # -- the mask kernels, per backend --------------------------------------------
 
 def _scan_masks(data_cm, lower, upper, *, tile_n=_rs.DEFAULT_TILE_N,
-                backend="auto"):
+                m=None, rows=None, backend="auto"):
     if check_backend(backend) == "torch":
         return _ref.multi_scan_ref(data_cm, lower, upper)
-    return _ms.multi_scan_tiles(data_cm, lower, upper, tile_n=tile_n)
+    return _ms.multi_scan_tiles(data_cm, lower, upper, tile_n=tile_n, m=m,
+                                rows=rows)
 
 
 def _vertical_masks(data_cm, dim_ids, lower, upper, *,
-                    tile_n=_rs.DEFAULT_TILE_N, backend="auto"):
+                    tile_n=_rs.DEFAULT_TILE_N, rows=None, backend="auto"):
     if check_backend(backend) == "torch":
         return _ref.multi_scan_vertical_ref(data_cm, dim_ids, lower, upper)
     return _ms.multi_scan_vertical(data_cm, dim_ids, lower, upper,
-                                   tile_n=tile_n)
+                                   tile_n=tile_n, rows=rows)
 
 
 def _range_scan(data_cm, lower, upper, *, tile_n=_rs.DEFAULT_TILE_N,
-                backend="auto"):
+                m=None, rows=None, backend="auto"):
     if check_backend(backend) == "torch":
         return _ref.range_scan_ref(data_cm, lower, upper)
-    return _rs.range_scan_tiles(data_cm, lower, upper, tile_n=tile_n)
+    return _rs.range_scan_tiles(data_cm, lower, upper, tile_n=tile_n, m=m,
+                                rows=rows)
 
 
 range_scan = counted(
@@ -333,14 +335,15 @@ multi_va_filter = counted(
 #     delta_payload); one ``device_get`` of the pair is still one host sync,
 #     and the spec's ``merge_delta`` folds the halves on the host.
 
-def _delta_payload(delta_cm, lower, upper, *, spec, tile_n, backend):
+def _delta_payload(delta_cm, lower, upper, *, spec, tile_n, backend, m=None):
     """Scan + reduce the delta block with the batch's bounds."""
-    dmask = _scan_masks(delta_cm, lower, upper, tile_n=tile_n, backend=backend)
+    dmask = _scan_masks(delta_cm, lower, upper, tile_n=tile_n, m=m,
+                        backend=backend)
     return spec.device_reduce(dmask, delta_cm, tile_n=tile_n, backend=backend)
 
 
 def _reduce_with_delta(mask, data_cm, lower, upper, delta_cm, base_tomb, *,
-                       spec, tile_n, backend):
+                       spec, tile_n, backend, m=None):
     """Fold the base tombstones, reduce the base, and pair it with the
     delta's payload when there is a delta block."""
     if base_tomb is not None:
@@ -349,14 +352,16 @@ def _reduce_with_delta(mask, data_cm, lower, upper, delta_cm, base_tomb, *,
     if delta_cm is None:
         return base
     return base, _delta_payload(delta_cm, lower, upper, spec=spec,
-                                tile_n=tile_n, backend=backend)
+                                tile_n=tile_n, backend=backend, m=m)
 
 
 def _multi_scan_reduce(data_cm, lower, upper, delta_cm=None, base_tomb=None, *,
-                       spec, tile_n=_rs.DEFAULT_TILE_N, backend="auto"):
-    mask = _scan_masks(data_cm, lower, upper, tile_n=tile_n, backend=backend)
+                       spec, tile_n=_rs.DEFAULT_TILE_N, m=None, rows=None,
+                       backend="auto"):
+    mask = _scan_masks(data_cm, lower, upper, tile_n=tile_n, m=m, rows=rows,
+                       backend=backend)
     return _reduce_with_delta(mask, data_cm, lower, upper, delta_cm, base_tomb,
-                              spec=spec, tile_n=tile_n, backend=backend)
+                              spec=spec, tile_n=tile_n, backend=backend, m=m)
 
 
 multi_scan_reduce = counted(
@@ -369,13 +374,14 @@ multi_scan_reduce = counted(
 
 def _multi_scan_vertical_reduce(data_cm, dim_ids, lower, upper, delta_cm=None,
                                 base_tomb=None, *, spec,
-                                tile_n=_rs.DEFAULT_TILE_N, backend="auto"):
+                                tile_n=_rs.DEFAULT_TILE_N, m=None, rows=None,
+                                backend="auto"):
     mask = _vertical_masks(data_cm, dim_ids, lower, upper, tile_n=tile_n,
-                           backend=backend)
+                           rows=rows, backend=backend)
     # The delta is small: a full scan of it is exact (unconstrained dims
     # carry match-all bounds), so it needs no vertical variant.
     return _reduce_with_delta(mask, data_cm, lower, upper, delta_cm, base_tomb,
-                              spec=spec, tile_n=tile_n, backend=backend)
+                              spec=spec, tile_n=tile_n, backend=backend, m=m)
 
 
 multi_scan_vertical_reduce = counted(
@@ -386,7 +392,8 @@ multi_scan_vertical_reduce = counted(
 
 def _multi_visit_reduce(data_cm, query_ids, block_ids, valid, visit_index,
                         lower, upper, delta_cm=None, base_tomb=None, *, spec,
-                        tile_n=_rs.DEFAULT_TILE_N, n_queries=1, backend="auto"):
+                        tile_n=_rs.DEFAULT_TILE_N, n_queries=1, m=None,
+                        backend="auto"):
     masks = _visit_masks(data_cm, query_ids, block_ids, lower, upper,
                          tile_n=tile_n, backend=backend)
     if base_tomb is not None:
@@ -398,9 +405,9 @@ def _multi_visit_reduce(data_cm, query_ids, block_ids, valid, visit_index,
     if delta_cm is None:
         return base
     # The (m_pad, q_pad) bounds cover the whole batch, so the delta scans
-    # once for every query whatever blocks it visited.
+    # once for every query whatever blocks it visited (``m``: its real dims).
     return base, _delta_payload(delta_cm, lower, upper, spec=spec,
-                                tile_n=tile_n, backend=backend)
+                                tile_n=tile_n, backend=backend, m=m)
 
 
 multi_visit_reduce = counted(

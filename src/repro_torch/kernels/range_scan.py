@@ -2,9 +2,9 @@
 
 Ports ``repro/kernels/range_scan.py`` (``range_scan_tiles``,
 ``range_scan_vertical``, ``range_scan_rows``, ``range_scan_visit``). On the
-card the columnar two are the Q=1 launch of a batched kernel body:
-``multi_scan_kernel`` and ``multi_scan_vertical_kernel`` in ``csrc/scan.cu``;
-the visit scan launches ``multi_scan_visit_kernel`` in ``csrc/visit.cu`` (the
+card the columnar two are the Q=1 launch of the batched kernel template
+``scan_kernel`` in ``csrc/scan.cu`` (full and vertical instances); the visit
+scan launches ``multi_scan_visit_kernel`` in ``csrc/visit.cu`` (the
 batched visit form is the block-major ``multi_scan_visit_sorted_kernel``
 there, scheduled by ``visit_schedule``); the row-major scan has its own,
 ``range_scan_rows_kernel`` in ``csrc/rows.cu``. On a CPU tensor each runs its
@@ -33,6 +33,11 @@ VEC = 4  # objects per CUDA thread (csrc/common.cuh)
 # Sorted visits one thread block of the block-major visit kernel takes
 # (csrc/visit.cu; the launcher halves it only when shared memory is short).
 VISITS_PER_BLOCK = 64
+# The columnar scan kernel (csrc/scan.cu) holds 2 * n_pairs rows of its
+# objects in registers, n_pairs one of SCAN_PAIRS (its instances), and
+# stages the bounds of up to qg queries in SCAN_SMEM_BYTES of shared memory.
+SCAN_PAIRS = (2, 4, 6, 8, 10, 12)
+SCAN_SMEM_BYTES = 46 * 1024
 
 
 def check_tiling(m_pad: int, n_pad: int, tile_n: int) -> None:
@@ -76,25 +81,64 @@ def bounds_input(b: torch.Tensor, name: str, data: torch.Tensor) -> torch.Tensor
     return b.to(data.dtype).contiguous()
 
 
+def compared_rows(m: int | None, m_pad: int) -> int:
+    """The rows a full scan compares: ``m`` (the real dims; the rows below
+    ``m_pad`` beyond it are padding, 0.0 under match-all bounds) or, by
+    default, all ``m_pad``."""
+    if m is None:
+        return m_pad
+    if not 1 <= m <= m_pad:
+        raise ValueError(f"m={m} is not in [1, m_pad={m_pad}]")
+    return m
+
+
+def scan_launch_shape(q_n: int, m_rows: int, rows_bound: int
+                      ) -> tuple[int, int]:
+    """(n_pairs, qg) of one ``scan_kernel`` launch, from shapes alone.
+
+    ``rows_bound`` bounds the rows any query of the launch can constrain
+    (``m_rows`` for the full scan, ``min(m_pad, Q * D_max)`` for the
+    vertical one): the kernel holds the smallest instance's 2 * n_pairs of
+    them in registers, at most 24 per pass. ``qg`` queries' bounds, row
+    bits and the per-row lists fit in ``SCAN_SMEM_BYTES`` (the layout of
+    ``Layout`` in ``csrc/scan.cu``)."""
+    need = -(-min(rows_bound, 2 * SCAN_PAIRS[-1]) // 2)
+    n_pairs = next(p for p in SCAN_PAIRS if p >= need)
+    words = -(-m_rows // 32)
+    per_query = 16 * n_pairs + 16 + 4 * words
+    qg = min(q_n, (SCAN_SMEM_BYTES - 12 * m_rows) // per_query)
+    if qg < 1:
+        raise ValueError(f"{m_rows} rows leave no room for a query's bounds")
+    return n_pairs, qg
+
+
 def scan_cuda(name: str, data_cm: torch.Tensor, lower: torch.Tensor,
-              upper: torch.Tensor) -> torch.Tensor:
-    """Launch ``multi_scan_kernel`` -> (Q, n_pad) int8; counted as ``name``."""
+              upper: torch.Tensor, m: int | None = None,
+              rows: int | None = None) -> torch.Tensor:
+    """Launch the full-scan ``scan_kernel`` over rows [0, m) -> (Q, n_pad)
+    int8; counted as ``name``. ``rows``, where given, bounds the rows whose
+    bounds some query sets."""
     dev = data_cm.device
     data = cuda_input(data_cm, torch.float32, "data_cm", dev)
     m_pad, n_pad = data.shape
+    m_rows = compared_rows(m, m_pad)
     q_n = lower.shape[1]
     lo = bounds_input(lower, "lower", data)
     up = bounds_input(upper, "upper", data)
     out = torch.empty((q_n, n_pad), dtype=torch.int8, device=dev)
-    _build.launch(name, "mdrq_multi_scan", dev, data, n_pad, m_pad, lo, up,
-                  q_n, out, block_threads(n_pad))
+    bound = m_rows if rows is None else min(m_rows, rows)
+    n_pairs, qg = scan_launch_shape(q_n, m_rows, max(bound, 1))
+    _build.launch(name, "mdrq_scan", dev, data, n_pad, m_pad, m_rows, None, 0,
+                  lo, up, q_n, n_pairs, qg, out)
     return out
 
 
 def vertical_cuda(name: str, data_cm: torch.Tensor, dim_ids: torch.Tensor,
-                  lower: torch.Tensor, upper: torch.Tensor) -> torch.Tensor:
-    """Launch ``multi_scan_vertical_kernel`` -> (Q, n_pad) int8; counted as
-    ``name``. ``dim_ids`` is (Q, D_max) with every id in [0, m_pad)."""
+                  lower: torch.Tensor, upper: torch.Tensor,
+                  rows: int | None = None) -> torch.Tensor:
+    """Launch the vertical ``scan_kernel`` -> (Q, n_pad) int8; counted as
+    ``name``. ``dim_ids`` is (Q, D_max) with every id in [0, m_pad);
+    ``rows``, where given, bounds the distinct ids it lists."""
     dev = data_cm.device
     data = cuda_input(data_cm, torch.float32, "data_cm", dev)
     m_pad, n_pad = data.shape
@@ -107,8 +151,10 @@ def vertical_cuda(name: str, data_cm: torch.Tensor, dim_ids: torch.Tensor,
     lo = bounds_input(lower, "lower", data)
     up = bounds_input(upper, "upper", data)
     out = torch.empty((q_n, n_pad), dtype=torch.int8, device=dev)
-    _build.launch(name, "mdrq_multi_scan_vertical", dev, data, n_pad, m_pad,
-                  ids, d_max, lo, up, q_n, out, block_threads(n_pad))
+    bound = min(m_pad, q_n * d_max, m_pad if rows is None else rows)
+    n_pairs, qg = scan_launch_shape(q_n, m_pad, max(bound, 1))
+    _build.launch(name, "mdrq_scan", dev, data, n_pad, m_pad, m_pad, ids,
+                  d_max, lo, up, q_n, n_pairs, qg, out)
     return out
 
 
@@ -118,12 +164,18 @@ def range_scan_tiles(
     upper: torch.Tensor,
     *,
     tile_n: int = DEFAULT_TILE_N,
+    m: int | None = None,
+    rows: int | None = None,
 ) -> torch.Tensor:
     """Full columnar range scan of one query.
 
     Args:
       data_cm: (m_pad, n_pad) columnar data; m_pad % 8 == 0, n_pad % tile_n == 0.
       lower, upper: (m_pad, 1) finite bounds.
+      m: compare rows [0, m) only (the real dims; the default compares all
+        m_pad rows, which gives the same mask under the padding contract).
+      rows: how many dims the query constrains, where the caller knows it
+        (sizes the kernel's registers; any value gives the same mask).
 
     Returns:
       (n_pad,) int8 match mask.
@@ -134,8 +186,9 @@ def range_scan_tiles(
         raise ValueError(f"bounds {tuple(lower.shape)}, {tuple(upper.shape)} "
                          f"!= ({m_pad}, 1)")
     if not data_cm.is_cuda:
-        return _ref.range_scan_ref(data_cm, lower, upper)
-    return scan_cuda("range_scan_tiles", data_cm, lower, upper)[0]
+        r = compared_rows(m, m_pad)
+        return _ref.range_scan_ref(data_cm[:r], lower[:r], upper[:r])
+    return scan_cuda("range_scan_tiles", data_cm, lower, upper, m, rows)[0]
 
 
 def range_scan_vertical(

@@ -8,8 +8,11 @@ run these without it):
 
 Shapes go past the GMRQB case ``chip_smoke.py`` covers: padded object counts
 that force smaller thread blocks, a 100-dimensional dataset whose tile must
-shrink to fit shared memory (and whose VA codes take 7 packed words), query
-counts that cross the kernels' 32-query groups, visit lists whose length is
+shrink to fit shared memory (and whose VA codes take 7 packed words), the
+scan kernel at Q in {1, 2, 13, 16, 31, 32, 33, 128} and m_pad in {8, 24,
+104} with inf and NaN in a real row and dim_ids padded by repeats, and at
+one query past a launch's staged group (Q = qg + 1, with and without
+several register passes), visit lists whose length is
 not a power of two and whose tail is padding (block -1), and the 64-bit
 offsets of a mask or a visit output past 2**31 bytes; the block-major visit
 kernel's edge cases (a block every query visits, a list of padding only,
@@ -95,6 +98,102 @@ def test_scan_kernels_match_plain(dev, m, n, n_q, tile_n):
                                      "multi_scan_vertical": 1,
                                      "range_scan_tiles": 1,
                                      "range_scan_vertical": 1}
+
+
+def _scan_case(m, n, n_q, seed, dev, q_pad=None):
+    """Data with +inf padding objects and inf, -inf and NaN planted in real
+    row 1; queries as ``_case`` makes them with query 0 constraining no
+    dim (and query 1, where there is one, listing dims in an order the
+    kernel reorders); bounds and dim_ids padded to ``q_pad`` columns, by
+    default the pow2 bucket (match-all padding columns, rows padded by
+    repeats)."""
+    from repro_torch.core.types import next_pow2
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, 8, size=(m, n)).astype(np.float32)
+    cols[min(1, m - 1), rng.choice(n, size=9, replace=False)] = np.repeat(
+        np.array([np.inf, -np.inf, np.nan], np.float32), 3)
+    padded, _, _ = ops.prepare_columnar(cols, 128)
+    qs = [RangeQuery.partial(m, {})]
+    for k in range(1, n_q):
+        dims = rng.choice(m, size=int(rng.integers(1, min(m, 12) + 1)),
+                          replace=False)
+        pred = {}
+        for d in dims:
+            a, b = np.sort(rng.integers(0, 8, size=2))
+            pred[int(d)] = (float(a), float(b))
+        qs.append(RangeQuery.partial(m, pred))
+    batch = QueryBatch.from_queries(qs)
+    q_pad = next_pow2(n_q) if q_pad is None else q_pad
+    lo, up = batch.bounds_columnar(padded.shape[0], q_pad)
+    return (torch.as_tensor(padded, device=dev),
+            torch.as_tensor(lo, device=dev), torch.as_tensor(up, device=dev),
+            torch.as_tensor(batch.padded_dim_ids(q_pad), device=dev))
+
+
+@pytest.mark.parametrize("m,n_q", [(m, q) for m in (5, 19, 100)
+                                   for q in (1, 2, 13, 16, 31, 32, 33, 128)])
+def test_scan_kernels_at_each_query_count(dev, m, n_q):
+    """The scan kernel at the query counts its groups and passes turn on,
+    at m_pad in {8, 24, 104} (m = 100 takes several register passes):
+    the full scan with and without ``m`` and the vertical scan equal their
+    plain versions (the vertical one also under a ``rows`` hint too low,
+    which forces further passes), and so do the Q = 1 wrappers on query 1."""
+    data, lo, up, ids = _scan_case(m, 2900, n_q, seed=m * 1000 + n_q, dev=dev)
+    want = ref.multi_scan_ref(data, lo, up)
+    assert torch.equal(multi_scan.multi_scan_tiles(data, lo, up, tile_n=128),
+                       want)
+    assert torch.equal(multi_scan.multi_scan_tiles(data, lo, up, tile_n=128,
+                                                   m=m), want)
+    want = ref.multi_scan_vertical_ref(data, ids, lo, up)
+    assert torch.equal(multi_scan.multi_scan_vertical(data, ids, lo, up,
+                                                      tile_n=128), want)
+    # a rows hint below the distinct dims listed costs passes, not results
+    assert torch.equal(multi_scan.multi_scan_vertical(data, ids, lo, up,
+                                                      tile_n=128, rows=1), want)
+    k = min(1, n_q - 1)
+    lk, uk = lo[:, k:k + 1].contiguous(), up[:, k:k + 1].contiguous()
+    assert torch.equal(range_scan.range_scan_tiles(data, lk, uk, tile_n=128,
+                                                   m=m),
+                       ref.range_scan_ref(data, lk, uk))
+    dims = ids[k]
+    d = dims.long()
+    assert torch.equal(range_scan.range_scan_vertical(data, dims, lk, uk,
+                                                      tile_n=128),
+                       ref.range_scan_ref(data[d], lk[d, 0], uk[d, 0]))
+    assert ops.kernel_launches() == {"multi_scan_tiles": 2,
+                                     "multi_scan_vertical": 2,
+                                     "range_scan_tiles": 1,
+                                     "range_scan_vertical": 1}
+
+
+@pytest.mark.parametrize("m,n_q,rows", [(19, 221, None), (19, 261, None),
+                                        (19, 405, 12), (100, 205, None),
+                                        (100, 359, 12)])
+def test_scan_kernels_past_one_query_group(dev, m, n_q, rows):
+    """Q = qg + 1 of some launch, unpadded: the kernel marks and stages each
+    group of queries anew per tile and pass, with the row counts of every
+    group summed. The full scan with and without ``m`` and the vertical
+    scan, each under the ``rows`` hint (12: six register pairs, so the
+    19- or 100-row union takes passes too), equal their plain versions."""
+    m_pad = -(-m // 8) * 8
+    # (n_pairs, qg) of the full scan with m and without it; the vertical
+    # scan launches with the second
+    shapes = [range_scan.scan_launch_shape(n_q, m, min(m, rows or m)),
+              range_scan.scan_launch_shape(n_q, m_pad, min(m_pad, rows or m_pad))]
+    assert any(qg == n_q - 1 for _, qg in shapes), shapes
+    data, lo, up, ids = _scan_case(m, 2900, n_q, seed=m * 1000 + n_q, dev=dev,
+                                   q_pad=n_q)
+    assert lo.shape[1] == n_q
+    want = ref.multi_scan_ref(data, lo, up)
+    assert torch.equal(multi_scan.multi_scan_tiles(data, lo, up, tile_n=128,
+                                                   m=m, rows=rows), want)
+    assert torch.equal(multi_scan.multi_scan_tiles(data, lo, up, tile_n=128,
+                                                   rows=rows), want)
+    assert torch.equal(multi_scan.multi_scan_vertical(data, ids, lo, up,
+                                                      tile_n=128, rows=rows),
+                       ref.multi_scan_vertical_ref(data, ids, lo, up))
+    assert ops.kernel_launches() == {"multi_scan_tiles": 2,
+                                     "multi_scan_vertical": 1}
 
 
 @pytest.mark.parametrize("m,n,n_q,tile_n", SHAPES)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the two-phase kernels and index paths of one checkout, for A/B runs.
+"""Time the scan and two-phase kernels and the query paths of one checkout,
+for A/B runs.
 
     python3 tools/kernel_ab.py --root DIR --label NAME --out FILE.json
     python3 tools/kernel_ab.py --compare FILE.json [FILE.json ...]
@@ -11,16 +12,20 @@ tool, so every checkout is timed by the same code. It builds the checkout's
 CUDA kernels, builds GMRQB at 10 M x 19 (seed 0) into one engine (scan,
 kd-tree, R*-tree, VA-file; tile_n = 1024) and measures, on one card:
 
-- kernels 7-10 as ``chip_smoke.visit_rows`` measures them (the visit kernel
-  at the kd-tree's and the VA-file's lists for the first 128 queries of
-  ``mixed_workload(seed=0)``, ``range_scan_visit`` for one query, the VA
-  filter at Q = 128 and 1): each output held equal to its plain version,
-  then the mean device ms of 10 launches after a warm one (CUDA events);
-- ``query_batch(method=m)`` for m in kdtree, rstar, vafile at B in {8, 128}
-  under Count, TopK(k=10, dim=3) and Agg(sum, 3): ``chip_smoke.warm_qps``
-  (median of 5 warm calls) after one call that records the op and
-  host-sync counts, the CUDA launches per wrapper and the results, so runs
-  of two checkouts can be held equal.
+- kernels 1, 2, 5 and 6 as ``chip_smoke.scan_rows`` measures them (the
+  columnar scans at the first 128 queries of ``mixed_workload(seed=0)``,
+  at the bucket shapes of the main path and at Q = 1) and kernels 7-10 as
+  ``chip_smoke.visit_rows`` does (the visit kernel at the kd-tree's and the
+  VA-file's lists for the first 128 queries, ``range_scan_visit`` for one
+  query, the VA filter at Q = 128 and 1): each output held equal to its
+  plain version, then the mean device ms of 10 launches after a warm one
+  (CUDA events);
+- ``query_batch(method=m)`` for m = auto at B in {1, 8, 128} and for m in
+  scan, scan_vertical, kdtree, rstar, vafile at B in {8, 128}, under
+  Count, TopK(k=10, dim=3) and Agg(sum, 3): ``chip_smoke.warm_qps``
+  (median of 5 warm calls, 41 at B <= 8) after one call that records the
+  op and host-sync counts, the CUDA launches per wrapper and the results,
+  so runs of two checkouts can be held equal.
 
 It writes one JSON object to ``--out`` and prints the card's name and power
 limit as nvidia-smi gives them. The second form prints each number of the
@@ -36,10 +41,15 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-METHODS = ("kdtree", "rstar", "vafile")
-BATCH_SIZES = (8, 128)
+# (method, batch sizes) of the qps cells
+CELLS = (("auto", (1, 8, 128)), ("scan", (8, 128)),
+         ("scan_vertical", (8, 128)), ("kdtree", (8, 128)), ("rstar", (8, 128)),
+         ("vafile", (8, 128)))
 Q_N = 128
 TIMED_CALLS = 5   # warm calls per qps cell (chip_smoke's own cells take 3)
+# ... and per cell at B <= 8: a call takes 2-5 ms on the host, whose noise
+# is largest there, so its median takes more calls
+TIMED_CALLS_SMALL_B = 41
 
 
 def load(root: Path):
@@ -56,7 +66,33 @@ def load(root: Path):
     got = Path(repro_torch.__file__).resolve().parent
     if got != (src / "repro_torch").resolve():
         raise SystemExit(f"kernel_ab: imported repro_torch from {got}")
+    drop_scan_hints()
     return chip_smoke
+
+
+def drop_scan_hints() -> None:
+    """A checkout from before the scan wrappers took ``m=`` and ``rows=``
+    (the parent of the columnar scan redesign) gets the reference's call:
+    the wrappers that lack both keywords are wrapped to drop them. Delete
+    once every checkout compared has them."""
+    import inspect
+
+    from repro_torch.kernels import multi_scan, range_scan
+    for mod, name in ((multi_scan, "multi_scan_tiles"),
+                      (multi_scan, "multi_scan_vertical"),
+                      (range_scan, "range_scan_tiles")):
+        fn = getattr(mod, name)
+        params = inspect.signature(fn).parameters
+        if "rows" in params:
+            continue
+        if "m" in params:
+            raise SystemExit(f"kernel_ab: {name} takes m= but not rows=")
+        print(f"kernel_ab: {name} takes no m= / rows=; they are dropped",
+              flush=True)
+
+        def without_hints(*args, _fn=fn, m=None, rows=None, **kw):
+            return _fn(*args, **kw)
+        setattr(mod, name, without_hints)
 
 
 def measure(root: Path, label: str) -> dict:
@@ -77,15 +113,18 @@ def measure(root: Path, label: str) -> dict:
     out = {"label": label, "root": str(root), "smi": smi, "ms": {},
            "qps": {}, "counts": {}, "launches": {}, "results": {}}
 
-    def row(name, source, replaces, err, ms, plain_ms, nbytes, ops_n, lib_ms):
+    def row(name, source, replaces, err, ms, plain_ms, nbytes, ops_n, lib_ms,
+            rate=cs.PEAK_F32_OPS_PER_S, shape=False):
         out["ms"][name] = ms
-        print(f"[{label}] {name}: {ms:.4f} ms (plain {plain_ms:.4f})", flush=True)
+        print(f"[{label}] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+              f"{cs.bound_ms(nbytes, ops_n, rate)[0]:.4f})", flush=True)
 
+    cs.scan_rows(eng, queries, row)
     cs.visit_rows(eng, QueryBatch.from_queries(queries[:Q_N]), queries, row)
 
-    cs.TIMED_CALLS = TIMED_CALLS
-    for method in METHODS:
-        for b in BATCH_SIZES:
+    for method, sizes in CELLS:
+        for b in sizes:
+            cs.TIMED_CALLS = TIMED_CALLS_SMALL_B if b <= 8 else TIMED_CALLS
             qs = queries[:b]
             for spec in (Count(), TopK(k=10, dim=3), Agg("sum", 3)):
                 key = f"{method} B={b} {spec}"
