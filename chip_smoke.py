@@ -79,8 +79,17 @@ non-zero without printing a result:
                admitted request completes at its length, with the logits
                (within ``LOGIT_ATOL``) and token ids of the same server on
                the plain backend, up to the first step whose plain top-2
-               logit margin is under twice that step's logit difference. Then
-               long-context decode: B = 4 at 32,768 slots, blocks of 512 keys,
+               logit margin is under twice that step's logit difference.
+               Then 8 more requests (seed 1; prompts of 40-120 tokens, 24
+               new, all admitted): positions cross blocks 0-4, refilled
+               slots decode on stale zone maps (both must be reached).
+               Both sets are replayed teacher-forced on the plain backend:
+               logits within ``LOGIT_ATOL`` at every generated token, greedy
+               tokens equal where the plain top-2 margin is at least 2 *
+               ``TOKEN_TIE``, and a planted fault (the last listed block
+               dropped in every call; its replay's launches are not
+               counted) must be rejected. Then long-context
+               decode: B = 4 at 32,768 slots, blocks of 512 keys,
                16 of 64 kept, K/V caches from a generator (seed 1), positions
                32,759 - 64 b (the last block partial), 8 teacher-forced steps
                on each backend on its own cache copy: every kernel call
@@ -88,13 +97,18 @@ non-zero without printing a result:
                version on the same inputs, every visit list the top 16 by a
                numpy stable sort of its bounds, logits within
                ``LOGIT_ATOL``, layer-0 visit lists of the two backends
-               equal; a profile of three steps (device busy and idle share,
-               top ops); warm ms per step and tokens/s with the kernel and
-               with ``kv_block_prune=0`` on the same state;
-               ``kv_visit_attention`` at that shape for one layer against
-               its plain version, against two planted faults (which the
-               ``KV_RTOL`` check must reject) and against
-               ``scaled_dot_product_attention`` over the whole cache.
+               equal; warm ms per step and tokens/s with the kernel and
+               with ``kv_block_prune=0`` on the same state; a profile of
+               three steps (device busy over device events, the idle share
+               against the warm step without the profiler, top ops,
+               ``kv_visit_attention``'s device ms per step);
+               ``kv_visit_attention`` on the inputs of one more step's
+               layer-0 call: against its plain version, int32 against int64
+               ids and positions, two planted faults (which the ``KV_RTOL``
+               check must reject), one device kernel per call, eager,
+               device and host time, and ``scaled_dot_product_attention``
+               over the whole cache; and the same times at the server shape
+               (the multi-block set's call with the most valid keys).
 
 The last three lines are the kernel table (JSON), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -105,6 +119,7 @@ import contextlib
 import functools
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -159,6 +174,10 @@ LM_ARCH = "qwen3_8b"
 LM_SEED = 0
 LM_REQUESTS, LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW = 8, 4, 1024, 16
 LM_PRUNE, LM_BLOCK = 4, 32          # what launch.serve --kv-prune 4 sets
+# The multi-block request set: prompts of 40-120 tokens and 24 new tokens, so
+# positions cross blocks 0-4 of 32 keys; every request admitted, 8 on 4 slots,
+# so refilled slots decode on their predecessors' zone maps.
+LM_MB_REQUESTS, LM_MB_PROMPT, LM_MB_NEW = 8, (40, 121), 24
 LONG_B, LONG_SLOTS, LONG_BLOCK, LONG_PRUNE = 4, 32_768, 512, 16
 LONG_STEPS = 8
 LONG_TIMED_STEPS = 10
@@ -178,6 +197,16 @@ KV_RTOL = 2.0 ** -6
 # faults are caught per call (KV_RTOL); this limit bounds the drift of the
 # whole path.
 LOGIT_ATOL = 0.5
+# The teacher-forced token check: with both backends fed one token stream,
+# the kernel's greedy token must equal the plain backend's wherever the plain
+# top-2 margin is at least 2 * TOKEN_TIE. A backend whose logits are within
+# TOKEN_TIE of the plain ones cannot pick another token there; the two
+# backends' logits drift 0.08-0.18 apart on an H100 (PERF.md), so a sound
+# kernel stays clear of it, while a fault that moves logits by more than
+# TOKEN_TIE (even within LOGIT_ATOL) is seen at every decisive step it flips.
+# (The margin test against each step's own logit difference can never fail:
+# margin >= 2 d forces the same argmax.)
+TOKEN_TIE = 0.25
 
 
 class CheckFailed(AssertionError):
@@ -348,10 +377,10 @@ class Oracle:
 def kernel_phase(eng, queries):
     """Hold each kernel against its plain version; measure all three times."""
     from repro_torch.core import QueryBatch
-    from repro_torch.kernels import range_scan, ref, reducers
+    from repro_torch.kernels import range_scan
 
     data = eng.columnar.data_dev
-    m_pad, n_pad = data.shape
+    m_pad = data.shape[0]
     dev = data.device
     rows = []
 
@@ -372,8 +401,23 @@ def kernel_phase(eng, queries):
     full = QueryBatch.from_queries(queries[:128])
     lo, up = (torch.as_tensor(a, device=dev)
               for a in full.bounds_columnar(m_pad, dtype=np.float32))
-    masks = scan_rows(eng, queries, row)
+    reducer_rows(eng, scan_rows(eng, queries, row), row)
 
+    lo1, up1 = lo[:, :1].contiguous(), up[:, :1].contiguous()
+    rows_row(eng, queries, row, got_columnar=range_scan.range_scan_tiles(
+        data, lo1, up1, tile_n=TILE_N, **scan_rows_kw(eng, queries[:1])))
+    visit_rows(eng, full, queries, row)
+    return rows
+
+
+def reducer_rows(eng, masks, row) -> None:
+    """Kernels 3 and 4 on the Q = 128 scan masks (``scan_rows``' return):
+    against their plain versions (fills exactly, sums within AGG_SUM_RTOL
+    and bit-identical when repeated, min / max exactly), then timed."""
+    from repro_torch.kernels import ref, reducers
+    data = eng.columnar.data_dev
+    n_pad = data.shape[1]
+    dev = data.device
     # -- masked_fill_tiles (TopK's front half) on the Q = 128 scan masks --
     values = data[3]
     for q_n in (1, 128):
@@ -420,14 +464,6 @@ def kernel_phase(eng, queries):
         time_ms(lambda: ref.masked_agg_ref(masks, values, "sum")),
         q_n * n_pad + n_pad * 4 + q_n * (n_pad // 1024) * 4, float(q_n * n_pad),
         None)
-    del masks, mask_bool
-
-    lo1, up1 = lo[:, :1].contiguous(), up[:, :1].contiguous()
-    rows_row(eng, queries, row, got_columnar=range_scan.range_scan_tiles(
-        data, lo1, up1, tile_n=TILE_N, **scan_rows_kw(eng, queries[:1])))
-    visit_rows(eng, full, queries, row)
-    return rows
-
 
 
 def scan_rows_kw(eng, qs, ids_np=None) -> dict:
@@ -605,10 +641,10 @@ def scan_rows(eng, queries, row):
     return masks
 
 
-def rows_row(eng, queries, row, got_columnar):
+def rows_row(eng, queries, row, got_columnar=None):
     """Kernel 11: the row-major scan at Q = 1 on the row scan's (10,000,384,
     24) copy, against its plain version — and against the columnar scan's
-    mask of the same query (same data, other layout)."""
+    mask of the same query (same data, other layout), where given."""
     from repro_torch.kernels import ops, range_scan, ref
 
     rs = eng.rowscan
@@ -619,7 +655,7 @@ def rows_row(eng, queries, row, got_columnar):
     got = range_scan.range_scan_rows(data, lo, up, tile_rows=rs.tile_rows)
     check(torch.equal(got, ref.range_scan_rows_ref(data, lo, up)),
           "range_scan_rows != plain")
-    check(torch.equal(got, got_columnar),
+    check(got_columnar is None or torch.equal(got, got_columnar),
           "range_scan_rows != the columnar scan's mask")
     print(f"  row scan: data {tuple(data.shape)}, query 0 matches "
           f"{int(got.sum())} rows", flush=True)
@@ -1069,32 +1105,48 @@ def delta_phase(eng, eng_plain, ds, queries):
     return fold_ms, compact_s, peak
 
 
-def lm_server(model, params, logits=None):
-    """Serve LM_REQUESTS requests (seed LM_SEED) through ``BatchServer``;
-    with ``logits`` (a dict), record the logits row of every generated token
-    per request id -> (done, steps, seconds)."""
+def lm_requests(cfg, seed: int, n: int, prompt: tuple[int, int], max_new: int,
+                admit_all: bool = False) -> list:
+    """``n`` requests (numpy seed ``seed``) with prompts of [lo, hi) tokens;
+    random admission features, or ones the admission filter takes."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        toks = rng.integers(0, cfg.vocab_size, int(rng.integers(*prompt)))
+        feats = [0.5, toks.size, 100.0, 0.5] if admit_all else \
+            [rng.random(), 8, 100.0, rng.random()]
+        reqs.append(Request(rid=i, prompt=toks.astype(np.int32),
+                            max_new=max_new,
+                            features=np.array(feats, np.float32)))
+    return reqs
+
+
+def lm_server(model, params, reqs, logits=None, steps=None):
+    """Serve ``reqs`` through ``BatchServer(slots=LM_SLOTS,
+    max_len=LM_MAX_LEN)``; with ``logits`` (a dict), record the logits row
+    of every generated token per request id; with ``steps`` (a list), record
+    each step's (tokens, positions, generating slots, their logits rows)
+    -> (done, steps, seconds)."""
     from repro_torch.kernels import ops
-    from repro_torch.serve import BatchServer, Request, admission_query
+    from repro_torch.serve import BatchServer, admission_query
 
     cfg = model.cfg
-    rng = np.random.default_rng(LM_SEED)
-    reqs = [Request(rid=i,
-                    prompt=rng.integers(0, cfg.vocab_size,
-                                        int(rng.integers(4, 16))).astype(np.int32),
-                    max_new=LM_MAX_NEW,
-                    features=np.array([rng.random(), 8, 100.0, rng.random()],
-                                      np.float32))
-            for i in range(LM_REQUESTS)]
     srv = BatchServer(model, params, slots=LM_SLOTS, max_len=LM_MAX_LEN)
-    if logits is not None:
+    if logits is not None or steps is not None:
         step = srv.step_fn
 
         def recording_step(params, cache, toks, pos):
             out, cache = step(params, cache, toks, pos)
-            rows = out[:, 0, :cfg.vocab_size].cpu().numpy()
-            for s, req in enumerate(srv.active):
-                if req is not None and not srv.to_feed[s]:
-                    logits.setdefault(req.rid, []).append(rows[s])
+            rows = out[:, 0, :cfg.vocab_size].float().cpu().numpy()
+            gen = [s for s, req in enumerate(srv.active)
+                   if req is not None and not srv.to_feed[s]]
+            for s in gen:
+                if logits is not None:
+                    logits.setdefault(srv.active[s].rid, []).append(rows[s])
+            if steps is not None:
+                steps.append((toks.cpu().numpy().copy(),
+                              pos.cpu().numpy().copy(), gen, rows[gen]))
             return out, cache
         srv.step_fn = recording_step
     ops.reset_counters()
@@ -1103,7 +1155,7 @@ def lm_server(model, params, logits=None):
     done = srv.serve(reqs, admission_query())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    steps = ops.counter("host_sync") - 1   # one per step, plus the admission's
+    n_steps = ops.counter("host_sync") - 1   # one per step, plus the admission's
     feats = np.stack([r.features for r in reqs])
     admitted = {r.rid for r in reqs if 0.2 <= r.features[0] <= 1.0
                 and 0.0 <= r.features[3] <= 0.8}
@@ -1111,33 +1163,117 @@ def lm_server(model, params, logits=None):
           f"served {sorted(r.rid for r in done)} != admitted {sorted(admitted)}"
           f" (features {feats.tolist()})")
     for r in done:
-        check(r.output is not None and r.output.shape == (LM_MAX_NEW,),
+        check(r.output is not None and r.output.shape == (r.max_new,),
               f"request {r.rid}: output {r.output!r}")
-    return done, steps, seconds
+    return done, n_steps, seconds
 
 
-def lm_server_part(model, plain, params) -> None:
+def replay(model, params, steps, fault=None, stop=None) -> list:
+    """Teacher forcing: feed the recorded steps' tokens and positions through
+    ``model``'s serve step on a fresh server cache (what ``BatchServer``
+    starts from) -> each step's logits rows of the generating slots.
+    ``fault`` alters every call of ``ops.kv_visit_attention`` (a planted
+    fault); ``stop(rows)`` True ends the replay early."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.serve_step import make_serve_step
+
+    cache = model.init_cache(LM_SLOTS, LM_MAX_LEN, model.dtype)
+    step = make_serve_step(model)
+    vocab = model.cfg.vocab_size
+    op, rows = ops.kv_visit_attention, []
+    if fault is not None:
+        ops.kv_visit_attention = lambda *a, **kw: op(*fault(*a), **kw)
+    try:
+        for toks, pos, gen, _ in steps:
+            out, cache = step(params, cache, torch.as_tensor(toks, device="cuda"),
+                              torch.as_tensor(pos, device="cuda"))
+            rows.append(out[gen, 0, :vocab].float().cpu().numpy())
+            if stop is not None and stop(rows):
+                break
+    finally:
+        ops.kv_visit_attention = op
+    return rows
+
+
+def token_reading(rows_k, rows_p) -> dict:
+    """The kernel side's logits rows against the plain side's, both fed one
+    token stream: the largest difference, and at the decisive steps (plain
+    top-2 margin >= 2 * TOKEN_TIE) how many greedy tokens differ."""
+    worst, decisive, differ, own_rule, tokens = 0.0, 0, 0, 0, 0
+    for lk_rows, lp_rows in zip(rows_k, rows_p):
+        for lk, lp in zip(lk_rows, lp_rows):
+            tokens += 1
+            d = float(np.abs(lk - lp).max())
+            worst = max(worst, d)
+            top2 = np.sort(lp)[-2:]
+            margin = float(top2[1] - top2[0])
+            own_rule += margin >= 2 * d
+            if margin >= 2 * TOKEN_TIE:
+                decisive += 1
+                differ += int(np.argmax(lk) != np.argmax(lp))
+    return {"tokens": tokens, "worst": worst, "decisive": decisive,
+            "differ": differ, "own_rule": own_rule}
+
+
+def rejections(r: dict) -> list[str]:
+    """What the teacher-forced check rejects in a ``token_reading``."""
+    out = []
+    if r["worst"] > LOGIT_ATOL:
+        out.append(f"logits differ by {r['worst']:.4g} > {LOGIT_ATOL}")
+    if r["differ"]:
+        out.append(f"{r['differ']} of {r['decisive']} decisive greedy tokens "
+                   f"differ from the plain backend's")
+    return out
+
+
+def teacher_forced_check(label, plain, params, steps) -> tuple[dict, list]:
+    """Replay the kernel server's token stream on the plain backend: logits
+    within LOGIT_ATOL at every generated token, greedy tokens equal at every
+    decisive step -> (the reading, the plain logits rows)."""
+    rows_p = replay(plain, params, steps)
+    r = token_reading([s[3] for s in steps], rows_p)
+    faults = rejections(r)
+    check(not faults, f"{label}: " + "; ".join(faults))
+    check(r["decisive"] > 0, f"{label}: no decisive step to compare")
+    print(f"  {label}, teacher-forced on the kernel's tokens: {r['tokens']} "
+          f"generated tokens, max |logit kernel - plain| {r['worst']:.4g} "
+          f"(limit {LOGIT_ATOL}); {r['decisive']} decisive (plain top-2 "
+          f"margin >= {2 * TOKEN_TIE}), all equal; {r['own_rule']} with "
+          f"margin >= 2 x their own logit difference", flush=True)
+    return r, rows_p
+
+
+def lm_server_part(model, plain, params) -> dict:
     """The server with the kernel against the same server on the plain
-    backend.
+    backend, on two request sets -> (the inputs of the multi-block set's
+    kernel call with the most valid keys, for the kernel row's server shape;
+    the multi-block set's recorded steps, the plain side's logits rows of
+    their replay and that reading, for ``served_fault``).
 
-    Token j of a request is compared while both sides have generated the
-    same tokens before it: its logits must agree within LOGIT_ATOL, and its
-    token must be equal unless the plain side's top-2 margin is under twice
-    the step's largest logit difference (a tie within what the two backends
-    may differ by): then the step is printed and the request compared no
-    further."""
-    done, steps, seconds = lm_server(model, params)
+    Short prompts (seed LM_SEED, positions in block 0): token j of a request
+    is compared while both sides have generated the same tokens before it:
+    its logits must agree within LOGIT_ATOL, and its token must be equal
+    unless the plain side's top-2 margin is under twice the step's largest
+    logit difference (then the step is printed and the request compared no
+    further). Both sets: every kernel call within KV_RTOL of its plain
+    version, and the plain backend teacher-forced on the kernel server's
+    tokens (``teacher_forced_check``). The multi-block set must reach block
+    4, lists of more than one valid block and refilled slots."""
+    cfg = model.cfg
+    reqs = lm_requests(cfg, LM_SEED, LM_REQUESTS, (4, 16), LM_MAX_NEW)
+    done, steps, seconds = lm_server(model, params, reqs)
     rec_k: dict[int, list] = {}
     rec_p: dict[int, list] = {}
+    tf_steps: list = []
     shadow = {"calls": 0, "err": 0.0, "rel": 0.0}
     with plain_shadow(shadow):
-        again, _, _ = lm_server(model, params, rec_k)
-    check(shadow["calls"] == steps * model.cfg.n_layers,
+        again, _, _ = lm_server(model, params, reqs, rec_k, tf_steps)
+    check(shadow["calls"] == steps * cfg.n_layers,
           f"{shadow['calls']} server kernel calls held against the plain "
           f"version, not one per layer and step")
     check([r.output.tolist() for r in again] == [r.output.tolist() for r in done],
           "the kernel server gave other tokens on a second run")
-    plain_done, _, plain_seconds = lm_server(plain, params, rec_p)
+    plain_done, _, plain_seconds = lm_server(plain, params, reqs, rec_p)
     check([r.rid for r in done] == [r.rid for r in plain_done],
           "completion order differs from the plain backend's")
     compared, worst = 0, 0.0
@@ -1170,6 +1306,60 @@ def lm_server_part(model, plain, params) -> None:
     for r in done:
         print(f"  request {r.rid}: prompt {r.prompt.size} tokens -> "
               f"{r.output[:8].tolist()}...", flush=True)
+    teacher_forced_check("server, short prompts", plain, params, tf_steps)
+    del rec_k, rec_p, tf_steps
+
+    # The multi-block set: positions past block 0, refilled slots.
+    reqs = lm_requests(cfg, LM_SEED + 1, LM_MB_REQUESTS, LM_MB_PROMPT,
+                       LM_MB_NEW, admit_all=True)
+    tf_steps = []
+    shadow = {"calls": 0, "err": 0.0, "rel": 0.0}
+    with plain_shadow(shadow):
+        done, steps, seconds = lm_server(model, params, reqs, steps=tf_steps)
+    refills = len(done) - LM_SLOTS
+    print(f"  server, multi-block set: {len(done)} requests (prompts "
+          f"{sorted(r.prompt.size for r in reqs)} tokens, {LM_MB_NEW} new) on "
+          f"{LM_SLOTS} slots, {refills} refilled slots, {steps} steps in "
+          f"{seconds:.2f} s; largest position {shadow['max_pos']} (block "
+          f"{shadow['max_pos'] // LM_BLOCK}); {shadow['multi']} of "
+          f"{shadow['calls']} kv_visit_attention calls list more than one "
+          f"block with valid keys, each within {shadow['err']:.4g} "
+          f"({shadow['rel']:.4g} of its max |plain|; limit {KV_RTOL:.4g}) of "
+          f"its plain version", flush=True)
+    check(len(done) == LM_MB_REQUESTS, "the multi-block set was not all served")
+    check(shadow["calls"] == steps * cfg.n_layers,
+          f"{shadow['calls']} multi-block kernel calls held against the plain "
+          f"version, not one per layer and step")
+    check(shadow["max_pos"] >= 4 * LM_BLOCK and shadow["multi"] > 0
+          and refills > 0,
+          "the multi-block set did not reach block 4, multi-block lists and "
+          "refilled slots")
+    sound, rows_p = teacher_forced_check("server, multi-block set", plain,
+                                         params, tf_steps)
+    return shadow["widest"], (tf_steps, rows_p, sound)
+
+
+def served_fault(model, params, tf_steps, rows_p, sound) -> None:
+    """A planted fault (the last listed block dropped in every kernel call)
+    replayed on the multi-block set's token stream must fail the
+    teacher-forced check (``lm_server_part``'s reading ``sound`` passed)."""
+    def drop_last(q, k_blocks, v_blocks, block_ids, pos):
+        ids = block_ids.clone()
+        ids[..., -1] = -1
+        return q, k_blocks, v_blocks, ids, pos
+    rows_f = replay(model, params, tf_steps, drop_last,   # to the first rejection
+                    stop=lambda rows: rejections(token_reading(
+                        rows[-1:], rows_p[len(rows) - 1:len(rows)])))
+    fault = token_reading(rows_f, rows_p)
+    caught = rejections(fault)
+    check(caught, f"planted fault (last listed block dropped) passes the "
+                  f"teacher-forced check: {fault}")
+    print(f"  planted fault, last listed block dropped in every call: "
+          f"rejected at step {len(rows_f)} of {len(tf_steps)} "
+          f"({'; '.join(caught)}); reading: {fault['differ']} of "
+          f"{fault['decisive']} decisive greedy tokens differ (sound: 0 of "
+          f"{sound['decisive']}), max |logit - plain| {fault['worst']:.4g} "
+          f"(sound {sound['worst']:.4g}, limit {LOGIT_ATOL})", flush=True)
 
 
 def long_cache(model, start: torch.Tensor) -> dict:
@@ -1212,9 +1402,12 @@ def plain_shadow(stats):
     against the plain version on the same inputs (before the next layer can
     change them); the plain calls launch no kernel and are not counted.
     ``stats`` collects the calls, the largest error and the largest error
-    over its call's max |plain output|."""
+    over its call's max |plain output|, the largest position, the calls
+    whose list holds more than one block with valid keys (``multi``) and the
+    inputs of the call with the most valid keys (``widest``)."""
     from repro_torch.kernels import ops, ref
     op = ops.kv_visit_attention
+    stats.update(max_pos=-1, multi=0, keys=-1, widest=None)
 
     def checked(q, k_blocks, v_blocks, block_ids, pos, *, backend="auto"):
         out = op(q, k_blocks, v_blocks, block_ids, pos, backend=backend)
@@ -1227,6 +1420,17 @@ def plain_shadow(stats):
             stats["calls"] += 1
             stats["err"] = max(stats["err"], err)
             stats["rel"] = max(stats["rel"], err / scale)
+            bs = k_blocks.shape[3]
+            first = block_ids.long() * bs
+            p = pos.long()[:, None, None]
+            live = (block_ids >= 0) & (first <= p)
+            keys = int(((p - first + 1).clamp(0, bs) * live).sum())
+            stats["max_pos"] = max(stats["max_pos"], int(pos.max()))
+            stats["multi"] += int((live.sum(-1) > 1).any())
+            if keys > stats["keys"]:
+                stats["keys"] = keys
+                stats["widest"] = (q.clone(), k_blocks, v_blocks,
+                                   block_ids.clone(), pos.clone())
         return out
     ops.kv_visit_attention = checked
     try:
@@ -1235,10 +1439,14 @@ def plain_shadow(stats):
         ops.kv_visit_attention = op
 
 
-def profile_steps(model, params, cache, tok, pos, steps: int = 3) -> None:
-    """torch.profiler over ``steps`` warm decode steps: device busy time
-    against the wall clock, and the ops that take the most device and host
-    time."""
+def profile_steps(model, params, cache, tok, pos, step_ms: float,
+                  steps: int = 3) -> None:
+    """torch.profiler over ``steps`` warm decode steps: device busy time (the
+    device events' durations) against ``step_ms``, the warm step's wall time
+    without the profiler (the idle share), and against the profiled steps'
+    own wall time (which the profiler's host work lengthens); the ops that
+    take the most device and host time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def dev_us(e):
@@ -1253,14 +1461,26 @@ def profile_steps(model, params, cache, tok, pos, steps: int = 3) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
-    busy = sum(dev_us(e) for e in events)
+    rows_us = sum(dev_us(e) for e in events)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
     if busy <= 0:
         print("  profiler: no device time recorded; idle share not measured",
               flush=True)
         return
-    print(f"  profiler, {steps} pruned decode steps: wall {wall_us / steps / 1e3:.2f}"
-          f" ms/step, device busy {busy / steps / 1e3:.2f} ms/step, idle share "
-          f"{1 - busy / wall_us:.3f}", flush=True)
+    busy_ms = busy / steps / 1e3
+    print(f"  profiler, {steps} pruned decode steps: device busy "
+          f"{busy_ms:.2f} ms/step (its {len(kernels) // steps} device events; "
+          f"the sum over all profiler rows, ops and kernels, "
+          f"{rows_us / steps / 1e3:.2f}); idle share {1 - busy_ms / step_ms:.3f}"
+          f" of the warm step without the profiler ({step_ms:.2f} ms); under "
+          f"the profiler the step took {wall_us / steps / 1e3:.2f} ms (share "
+          f"{1 - busy / wall_us:.3f})", flush=True)
+    kv = [e for e in kernels if "kv_visit" in e.name]
+    print(f"  kv_visit_attention in the decode step: "
+          f"{sum(e.time_range.elapsed_us() for e in kv) / steps / 1e3:.4f} "
+          f"device ms/step in {len(kv) // steps} kernels/step "
+          f"({sorted({e.name[:60] for e in kv})})", flush=True)
     for e in sorted(events, key=dev_us, reverse=True)[:10]:
         print(f"    device {dev_us(e) / steps / 1e3:8.3f} ms/step  calls "
               f"{e.count // steps:5d}  {e.key[:70]}", flush=True)
@@ -1273,7 +1493,7 @@ def profile_steps(model, params, cache, tok, pos, steps: int = 3) -> None:
 def lm_long_part(params):
     """Teacher-forced long-context decode on both backends; step times with
     and without the prune on the same state -> (the kernel's cache, the
-    last step's layer-0 visit list, its positions)."""
+    inputs of the layer-0 kernel call of one more step)."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
 
@@ -1349,32 +1569,163 @@ def lm_long_part(params):
         print(f"  warm decode step, B={LONG_B} at {LONG_SLOTS} slots, "
               f"kv_block_prune={m.cfg.kv_block_prune}: {times[name]:.2f} ms "
               f"({LONG_B * 1e3 / times[name]:.1f} tokens/s)", flush=True)
-    profile_steps(model, params, cache, tok, pos)
-    vk = []
-    model.decode_step(params, cache, tok, pos, visits=vk)
-    return cache, vk[0][0], pos
+    profile_steps(model, params, cache, tok, pos, times["pruned"])
+    return cache, decode_call(model, params, cache, tok, pos)
 
 
-def kv_visit_row(cfg, cache, ids, pos) -> dict:
-    """Kernel 12 at the long-context shape, layer 0: against its plain
-    version and against SDPA over the whole cache with a mask of the same
-    keys."""
+def decode_call(model, params, cache, tok, pos) -> tuple:
+    """One more decode step; the inputs of its layer-0 kv_visit_attention
+    call, as the model passes them (int64 ids from the selection, the
+    strided views of the cache)."""
+    from repro_torch.kernels import ops
+    op, calls = ops.kv_visit_attention, []
+
+    def recording(*args, **kw):
+        calls.append(args)
+        return op(*args, **kw)
+    ops.kv_visit_attention = recording
+    try:
+        model.decode_step(params, cache, tok, pos)
+    finally:
+        ops.kv_visit_attention = op
+    q, kb, vb, ids, p = calls[0]
+    return q.clone(), kb, vb, ids.clone(), p.clone()
+
+
+def device_kernels(fn, reps: int = TIMING_REPS,
+                   tries: int = 5) -> tuple[float, float, list]:
+    """torch.profiler over ``reps`` calls of ``fn`` after a warm one -> (the
+    device ms per call: the summed durations of its device events, the
+    device events per call, their names).
+
+    The profiler loses device events now and then: on the H100 a kernel's
+    device timestamp can read earlier than its own launch on the host
+    clock, and a kernel that then falls before the window's start is
+    dropped; a window can also come back with no kernel at all. Every call
+    of ``fn`` launches at least one kernel, so a window with fewer device
+    events than calls is incomplete: it is printed and taken again, up to
+    ``tries`` windows in all. A window with as many events as calls or
+    more is returned as it was read."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    for window in range(1, tries + 1):
+        # a warm-up step first: without one the trace can miss more events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")]   # the step's span
+        if len(dev) >= reps:
+            break
+        print(f"  profiler window {window} of {tries} kept {len(dev)} device "
+              f"events for {reps} calls: incomplete", flush=True)
+    us = sum(e.time_range.elapsed_us() for e in dev)
+    return us / reps / 1e3, len(dev) / reps, sorted({e.name for e in dev})
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host microseconds per call of ``fn`` (the enqueue: Python, checks,
+    launch), the device left to run behind."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def kv_visit_timing(q, kb, vb, ids, pos) -> dict:
+    """``kv_visit.kv_visit_attention`` on these inputs: the eager CUDA-event
+    ms (``time_ms``), the device ms and device kernels per call
+    (``device_kernels``) and the wrapper's host us per call."""
+    from repro_torch.kernels import kv_visit
+
+    def call():
+        return kv_visit.kv_visit_attention(q, kb, vb, ids, pos)
+    device_ms, per_call, names = device_kernels(call)
+    return {"ms": time_ms(call), "device_ms": device_ms,
+            "kernels_per_call": per_call, "kernel_names": names,
+            "host_us": host_us(call)}
+
+
+def kv_bound(q, ids, pos, bs: int) -> tuple[float, str, int]:
+    """Bound of one call: the valid keys (ids >= 0, slot <= pos) of the
+    listed blocks, their K and V rows read once; q, the ids and the output
+    once; 4 * G * hd flops per key -> (ms, by, keys)."""
+    _, _, g, hd = q.shape
+    first = ids.long() * bs
+    keys = int(((pos.long()[:, None, None] - first + 1).clamp(0, bs)
+                * (ids >= 0)).sum())
+    nbytes = (keys * hd * 2 + 2 * q.numel()) * q.element_size() \
+        + ids.numel() * ids.element_size()
+    return (*bound_ms(nbytes, 4.0 * g * hd * keys), keys)
+
+
+def decode_kv_case(pos: list, slots: int, block: int, prune: int,
+                   seed: int = 1) -> tuple:
+    """One layer of a Qwen3-8B decode step, without the model: token-major
+    K/V (B, slots, KV, hd) bf16 from a generator (seed), zeros past each
+    row's position; q from the same generator; the visit list as the
+    model's prune makes it (the top ``prune`` blocks by the zone-map bound,
+    blocks with no valid key last, the block being written first) -> (q, k
+    view, v view, ids int64, pos int64), the views block-major. The
+    long-context shape: ``pos`` as ``lm_long_part``'s last step, LONG_SLOTS,
+    LONG_BLOCK, LONG_PRUNE."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.reducers import topk_ascending_ties
+    from repro_torch.models import layers
+
+    cfg = get_config(LM_ARCH)
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    b, g, nb = len(pos), cfg.n_heads // kv, slots // block
+    pos = torch.tensor(pos, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    written = torch.arange(slots, device="cuda")[None, :] <= pos[:, None]
+    k, v = (torch.randn((b, slots, kv, hd), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+            .mul_(written[:, :, None, None]) for _ in range(2))
+    q = torch.randn((b, kv, g, hd), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    kb = k.view(b, nb, block, kv, hd).float()
+    w5 = written.view(b, nb, block, 1, 1)
+    big = float(torch.finfo(torch.bfloat16).max)
+    kmin = torch.where(w5, kb, big).amin(dim=2)
+    kmax = torch.where(w5, kb, -big).amax(dim=2)
+    del kb
+    ub = layers.block_upper_bounds(q.float(), kmin, kmax)
+    ub = torch.where(written.view(b, nb, block).any(-1)[:, None, :], ub,
+                     float("-inf"))
+    cur = torch.arange(nb, device="cuda")[None, :] == (pos // block)[:, None]
+    ub = torch.where(cur[:, None, :], float("inf"), ub)
+    ids = topk_ascending_ties(ub.reshape(b * kv, nb), prune,
+                              largest=True).view(b, kv, prune)
+
+    def view(c):
+        return c.view(b, nb, block, kv, hd).permute(0, 3, 1, 2, 4)
+    return q, view(k), view(v), ids, pos
+
+
+def kv_visit_row(cfg, cache, call, server_call) -> dict:
+    """Kernel 12 at the long-context shape, on the inputs of the last decode
+    step's layer-0 call: against its plain version, two planted faults and
+    SDPA over the whole cache with a mask of the same keys; its eager,
+    device and host times; the same at the server shape (the multi-block
+    set's call with the most valid keys)."""
     import torch.nn.functional as F
     from repro_torch.kernels import kv_visit, ref
 
-    # ids and positions as the wrapper hands them to the kernel (int32), so
-    # the times are the kernel's, not the casts'
-    ids, pos = ids.to(torch.int32), pos.to(torch.int32)
+    q, kb, vb, ids, pos = call
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     g = cfg.n_heads // kv
     nb = LONG_SLOTS // LONG_BLOCK
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    q = torch.randn((LONG_B, kv, g, hd), generator=gen, device="cuda").to(
-        torch.bfloat16)
-
-    def view(c):
-        return c.view(LONG_B, nb, LONG_BLOCK, kv, hd).permute(0, 3, 1, 2, 4)
-    kb, vb = view(cache["k"][0]), view(cache["v"][0])
     got = kv_visit.kv_visit_attention(q, kb, vb, ids, pos)
     want = ref.kv_visit_attention_ref(q, kb, vb, ids, pos)
     err, scale = kv_err(got, want)
@@ -1382,6 +1733,9 @@ def kv_visit_row(cfg, cache, ids, pos) -> dict:
                                   f"{err} > {KV_RTOL} x max |plain| {scale}")
     check(torch.equal(got, kv_visit.kv_visit_attention(q, kb, vb, ids, pos)),
           "kv_visit_attention differs between identical calls")
+    check(torch.equal(got, kv_visit.kv_visit_attention(q, kb, vb, ids.int(),
+                                                       pos.int())),
+          "kv_visit_attention differs between int64 and int32 ids")
     # Planted faults: the kernel on altered inputs, held against the plain
     # output of the true ones, as a kernel with that fault would be. The
     # check above must reject each.
@@ -1414,27 +1768,47 @@ def kv_visit_row(cfg, cache, ids, pos) -> dict:
                                               enable_gqa=True)
     lib_err = float((library().reshape(got.shape).float() - got.float())
                     .abs().max())
-    # Bound: the valid keys of the listed blocks, K and V rows read once;
-    # q, ids and the output once; 4 * G * hd flops per key.
-    first = ids.long() * LONG_BLOCK
-    keys = int((pos[:, None, None] - first + 1).clamp(0, LONG_BLOCK).sum())
-    nbytes = keys * hd * 2 * 2 + 2 * q.numel() * 2 + ids.numel() * 4
-    b_ms, by = bound_ms(nbytes, 4.0 * g * hd * keys)
+    b_ms, by, keys = kv_bound(q, ids, pos, LONG_BLOCK)
+    t = kv_visit_timing(q, kb, vb, ids, pos)
+    t32 = kv_visit_timing(q, kb, vb, ids.int(), pos.int())
+    check(t["kernels_per_call"] == 1 and t32["kernels_per_call"] == 1,
+          f"kv_visit_attention launched {t['kernels_per_call']} / "
+          f"{t32['kernels_per_call']} device kernels per call (int64 / int32 "
+          f"ids and positions): {t['kernel_names']}")
     row = {"name": "kv_visit_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/kv_visit.cu",
            "replaces": "src/repro/kernels/kv_visit.py:110", "launches": 0,
-           "max_abs_err": err,
-           "ms": time_ms(lambda: kv_visit.kv_visit_attention(q, kb, vb, ids,
-                                                             pos)),
+           "max_abs_err": err, "ms": t["ms"], "device_ms": t["device_ms"],
            "plain_ms": time_ms(lambda: ref.kv_visit_attention_ref(q, kb, vb,
                                                                   ids, pos)),
            "bound_ms": b_ms, "bound_by": by, "library_ms": time_ms(library)}
     print(f"  kv_visit_attention, B={LONG_B} KV={kv} G={g} hd={hd}, "
-          f"{ids.shape[-1]} of {nb} blocks of {LONG_BLOCK} ({keys} valid keys): "
-          f"err={err} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-          f"bound_ms={b_ms:.4f} ({by}) library_ms={row['library_ms']:.4f} "
-          f"(SDPA over all {LONG_SLOTS} slots; max |SDPA - kernel| "
-          f"{lib_err:.4g})", flush=True)
+          f"{ids.shape[-1]} of {nb} blocks of {LONG_BLOCK} ({keys} valid keys; "
+          f"ids {ids.dtype}, pos {pos.dtype} as the decode step passes them): "
+          f"err={err} ms={t['ms']:.4f} device_ms={t['device_ms']:.4f} "
+          f"host_us={t['host_us']:.1f} ({t['kernels_per_call']:g} device "
+          f"kernel per call: {t['kernel_names']}); int32 ids and pos: "
+          f"ms={t32['ms']:.4f} device_ms={t32['device_ms']:.4f}; "
+          f"plain_ms={row['plain_ms']:.4f} bound_ms={b_ms:.4f} ({by}) "
+          f"library_ms={row['library_ms']:.4f} (SDPA over all {LONG_SLOTS} "
+          f"slots; max |SDPA - kernel| {lib_err:.4g})", flush=True)
+
+    q, kb, vb, ids, pos = server_call
+    got = kv_visit.kv_visit_attention(q, kb, vb, ids, pos)
+    err, scale = kv_err(got, ref.kv_visit_attention_ref(q, kb, vb, ids, pos))
+    check(err <= KV_RTOL * scale, f"server shape: {err} from plain > "
+                                  f"{KV_RTOL} x {scale}")
+    s_ms, s_by, s_keys = kv_bound(q, ids, pos, kb.shape[3])
+    ts = kv_visit_timing(q, kb, vb, ids, pos)
+    check(ts["kernels_per_call"] == 1,
+          f"server shape: {ts['kernels_per_call']} device kernels per call")
+    print(f"  kv_visit_attention at the server shape (B={q.shape[0]} KV="
+          f"{q.shape[1]} G={q.shape[2]}, {ids.shape[-1]} of {kb.shape[2]} "
+          f"blocks of {kb.shape[3]}, positions {pos.tolist()}, {s_keys} valid "
+          f"keys; ids {ids.dtype}, pos {pos.dtype} as the server passes them): "
+          f"err={err} ms={ts['ms']:.4f} device_ms="
+          f"{ts['device_ms']:.4f} host_us={ts['host_us']:.1f} "
+          f"bound_ms={s_ms:.5f} ({s_by})", flush=True)
     return row
 
 
@@ -1456,18 +1830,54 @@ def lm_phase() -> dict:
     print(f"  {cfg.name}: {count_params(params) / 1e9:.3f} B parameters, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
           f"initialised in {time.perf_counter() - t0:.1f} s", flush=True)
+    # The launches of the main path: the served request sets and the
+    # long-context decode, each counted from 0; not the planted fault's
+    # replay between them (the kernel on altered inputs).
     ops.reset_kernel_launches()
-    lm_server_part(model, build_model(cfg, backend="torch"), params)
-    long = lm_long_part(params)
-    launches = ops.kernel_launches()
-    print(f"  kernel launches on the LM path: {launches}", flush=True)
+    server_call, fault_case = lm_server_part(
+        model, build_model(cfg, backend="torch"), params)
+    served = ops.kernel_launches()
+    served_fault(model, params, *fault_case)
+    del fault_case
+    ops.reset_kernel_launches()
+    cache, call = lm_long_part(params)
+    decoded = ops.kernel_launches()
+    launches = {k: served.get(k, 0) + decoded.get(k, 0)
+                for k in sorted({*served, *decoded})}
+    print(f"  kernel launches on the LM path: {launches} (served sets "
+          f"{served}, long-context decode {decoded})", flush=True)
     check(launches.get("kv_visit_attention", 0) > 0,
           "kernel kv_visit_attention was not launched on the LM path")
-    row = kv_visit_row(cfg, *long)
+    row = kv_visit_row(cfg, cache, call, server_call)
     row["launches"] = launches["kv_visit_attention"]
     print(f"  LM phase peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     return row
+
+
+def kv_build_check() -> None:
+    """kv_visit.cu's instances: 0 spills in each (``ptxas -v``, from the
+    build log kept beside the library), the keys per tile the wrapper plans
+    with equal to the kernel's, and the dynamic shared memory (the ring) of
+    each per thread block, as the built library reports them."""
+    from repro_torch.kernels import _build, kv_visit
+    log = _build.BUILD_LOG.get("kv_visit.cu")
+    check(log is not None, "kv_visit.cu: no build log (ptxas -v) to read")
+    n = len(kv_visit.DTYPES) * len(kv_visit.HEAD_DIMS)
+    spills = [int(k) for k in re.findall(r"(\d+) bytes spill stores", log)]
+    check(len(spills) == n and not any(spills),
+          f"kv_visit.cu spills (ptxas -v, {n} instances): {spills}")
+    smem = []
+    for dt in kv_visit.DTYPES:
+        for hd in kv_visit.HEAD_DIMS:
+            tile, nbytes = kv_visit.instance_shape(hd, dt)
+            check(tile == kv_visit.tile_keys(hd, dt),
+                  f"kv_visit {dt} hd {hd}: the kernel's tile is {tile} keys, "
+                  f"the wrapper plans with {kv_visit.tile_keys(hd, dt)}")
+            smem.append(f"{str(dt)[6:]} hd {hd}: {nbytes}")
+    print(f"  kv_visit.cu: {n} instances, 0 bytes spill stores; dynamic "
+          f"shared memory per block (B, as the library reports it): "
+          f"{', '.join(smem)}", flush=True)
 
 
 def main() -> int:
@@ -1493,6 +1903,7 @@ def main() -> int:
             for line in log.splitlines():
                 if "registers" in line or "Compiling entry" in line:
                     print(f"  {src}: {line.strip()}")
+        kv_build_check()
 
     with phase("data"):
         ds = gmrqb.build(N, seed=SEED)

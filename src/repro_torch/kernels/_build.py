@@ -5,7 +5,8 @@ with a plain C interface (no PyTorch headers, so a build takes seconds). All
 sources compile in parallel, one ``nvcc`` process each. Libraries land in
 ``build/torch_ext/`` at the root of the checkout (listed in ``.gitignore``),
 named by a hash of their sources and flags, so an edited source rebuilds and
-an unchanged one is reused.
+an unchanged one is reused. nvcc's output (``ptxas -v``: registers, spills)
+is kept beside each library and read into ``BUILD_LOG`` when it is reused.
 
 Nothing here runs at import time: the first launch on a CUDA tensor calls
 ``library()``. A missing compiler or a failed build raises.
@@ -36,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_PI = ctypes.POINTER(ctypes.c_int)
 # C signature of every exported launcher (all return a cudaError_t as int).
 _SIGNATURES = {
     "mdrq_scan": (_P, _LL, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I, _P),
@@ -47,9 +49,11 @@ _SIGNATURES = {
                                      _P, _I, _P),
     "mdrq_multi_va_filter": (_P, _LL, _I, _I, _P, _P, _I, _P, _I, _I, _P),
     "mdrq_range_scan_rows": (_P, _LL, _I, _P, _P, _P, _I, _P),
-    "mdrq_kv_visit_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
-                                _LL, _LL, _F, _F, _I, _P),
+    "mdrq_kv_visit_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL,
+                                _LL, _LL, _LL, _LL, _LL, _LL, _LL, _F, _F, _I,
+                                _P),
+    "mdrq_kv_visit_shape": (_I, _I, _PI, _PI),
 }
 
 # Kernel launches per wrapper name since the last ``reset_launches``.
@@ -92,6 +96,9 @@ def build() -> dict[str, Path]:
     procs = {}
     for src, lib in libs.items():
         if lib.exists():
+            log = lib.with_suffix(".log")
+            if log.exists():
+                BUILD_LOG.setdefault(src, log.read_text())
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
@@ -106,6 +113,7 @@ def build() -> dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{src}:\n{out}")
             continue
+        lib.with_suffix(".log").write_text(out)
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

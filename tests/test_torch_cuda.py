@@ -23,10 +23,14 @@ m in {3, 19, 100}; and the engine under a live delta (appended rows, base and
 delta tombstones) on every path. Masks must be exactly equal; sums within
 rtol=1e-5 (float32 sums in another order) and bit-identical across repeated
 runs; min/max exactly equal. The block-visit decode attention at head dims
-32-256, 2-8 query rows per kv head and blocks not a multiple of its tile,
+32-256, 1-8 query rows per kv head and blocks not a multiple of its tile,
 through strided views of a token-major cache (equal to a contiguous copy,
-bit-identical across calls), its masking edge cases, and the reduced Qwen3
-decode on the card against the plain backend and the CPU.
+bit-identical across calls, int32 ids and positions equal to int64 ones,
+one device kernel per call by torch.profiler), at the split plan's edges
+(one visit, more splits than visits, B * KV above the SM count, 64 visits,
+padding spread over the splits, a list with no valid key), its masking
+edge cases, and the reduced Qwen3 decode on the card against the plain
+backend and the CPU.
 """
 import numpy as np
 import pytest
@@ -611,6 +615,102 @@ def test_kv_visit_kernel_matches_plain(dev, b, kv, g, hd, nb, bs, n_visit, dtype
         q, kb.contiguous(), vb.contiguous(), ids, pos))
     assert torch.equal(got, kv_visit.kv_visit_attention(*args))
     assert ops.kernel_launches() == {"kv_visit_attention": 3}
+
+
+def _device_kernels(fn, reps=3, tries=5):
+    """(device kernels per call of ``fn``, their names) by torch.profiler.
+    The profiler can drop a device event (its device timestamp before the
+    window's start): a window with fewer device events than calls is
+    incomplete and taken again, up to ``tries`` windows (as
+    ``chip_smoke.device_kernels``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        # a warm-up step first: without one the trace can miss more events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith("ProfilerStep")]   # the step's span
+        if len(names) >= reps:
+            break
+    return len(names) / reps, sorted(set(names))
+
+
+def _check_kv_visit_call(args, dtype):
+    """Against the plain version; bit-identical when repeated and with int32
+    ids and positions; one device kernel per call."""
+    from repro_torch.kernels import kv_visit
+    q, kb, vb, ids, pos = args
+    got = kv_visit.kv_visit_attention(*args)
+    tol = KV_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.kv_visit_attention_ref(*args).float(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(got, kv_visit.kv_visit_attention(*args))
+    assert torch.equal(got, kv_visit.kv_visit_attention(q, kb, vb, ids.int(), pos.int()))
+    per_call, names = _device_kernels(lambda: kv_visit.kv_visit_attention(*args))
+    assert per_call == 1 and all("kv_visit_kernel" in n for n in names), names
+
+
+# (b, kv, g, hd, nb, bs, n_visit): one visit of 33 keys; blocks of 200 keys
+# (tile boundaries inside a block, split boundaries inside a block); more
+# splits than visits; B * KV above the SM count; 64 visits (splits that
+# merge); G in {1, 3, 4, 7, 8}, hd in {32, 64, 128, 256}
+KV_EDGE_SHAPES = [(1, 2, 1, 32, 4, 33, 1), (2, 2, 3, 64, 4, 200, 3),
+                  (1, 1, 7, 128, 3, 200, 1), (4, 40, 4, 128, 4, 32, 4),
+                  (2, 2, 8, 256, 80, 16, 64), (1, 4, 8, 64, 70, 64, 64)]
+
+
+@pytest.mark.parametrize("shape", KV_EDGE_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_kv_visit_kernel_edge_shapes(dev, shape, dtype):
+    _check_kv_visit_call(_kv_case(*shape, dtype, dev, seed=1), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_kv_visit_kernel_uniform_and_spread_padding(dev, dtype):
+    """Many splits: padding ids in every third place of a 48-visit list; a
+    list with no valid key (every listed block past pos, padding between)."""
+    b, kv, g, hd, nb, bs, n_visit = 2, 2, 4, 128, 64, 32, 48
+    q, kb, vb, ids, pos = _kv_case(b, kv, g, hd, nb, bs, n_visit, dtype, dev, seed=2)
+    ids[..., ::3] = -1
+    pos[0] = 40                               # blocks 0 and 1 of row 0
+    ids[0, 0] = torch.where(torch.arange(n_visit, device=dev) % 2 == 0, 5, -1)
+    _check_kv_visit_call((q, kb, vb, ids, pos), dtype)
+    from repro_torch.kernels import kv_visit
+    uniform = kv_visit.kv_visit_attention(q, kb, vb, ids, pos)[0, 0].float()
+    rows = torch.cat([vb[0, 0, 5]] * (n_visit // 2) + [vb[0, 0, 0]] * (n_visit // 2))
+    torch.testing.assert_close(uniform, rows.float().mean(0).expand_as(uniform),
+                               rtol=KV_TOL[dtype], atol=KV_TOL[dtype])
+
+
+def test_kv_visit_kernel_two_streams(dev):
+    """Calls on two streams at once (each stream has its own merge tickets)
+    equal the call on one stream, bit for bit."""
+    from repro_torch.kernels import kv_visit
+    args = _kv_case(4, 8, 4, 128, 64, 64, 64, torch.bfloat16, dev, seed=3)
+    want = kv_visit.kv_visit_attention(*args)
+    main = torch.cuda.current_stream()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(main)
+    outs = []
+    for _ in range(20):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(kv_visit.kv_visit_attention(*args))
+    for s in streams:
+        main.wait_stream(s)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
 
 
 def test_kv_visit_kernel_masking_edge_cases(dev):

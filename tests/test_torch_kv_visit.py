@@ -201,3 +201,16 @@ def test_grouped_block_selection_equals_reference(nb, keep, groups):
     want = (topg + (jnp.arange(groups) * nbg)[None, None, :, None]).reshape(
         2, 2, groups * kg)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int64_and_int32_ids_and_positions_agree(dtype):
+    """The top-k selection hands the op int64 ids and the server int32
+    positions, the long-context decode int64 ones: every mix gives the same
+    result (the kernel reads both widths; no cast)."""
+    q, kb, vb, ids, pos = _torch(_case(*SHAPES[1], seed=5), dtype)
+    want = ops.kv_visit_attention(q, kb, vb, ids.long(), pos.long())
+    for i in (torch.int32, torch.int64):
+        for p in (torch.int32, torch.int64):
+            got = ops.kv_visit_attention(q, kb, vb, ids.to(i), pos.to(p))
+            assert torch.equal(got, want)

@@ -1,20 +1,35 @@
 #!/usr/bin/env python3
-"""Time the scan and two-phase kernels and the query paths of one checkout,
-for A/B runs.
+"""Time the kernels and the query paths of one checkout, for A/B runs.
 
-    python3 tools/kernel_ab.py --root DIR --label NAME --out FILE.json
+    python3 tools/kernel_ab.py --root DIR --label NAME --out FILE.json [--kv-only]
     python3 tools/kernel_ab.py --compare FILE.json [FILE.json ...]
 
 The first form imports ``repro_torch`` from ``DIR/src`` (a checkout of this
 repository, for example the parent commit unpacked with ``git archive``) and
 drives it with the helpers of the ``chip_smoke.py`` that sits beside this
 tool, so every checkout is timed by the same code. It builds the checkout's
-CUDA kernels, builds GMRQB at 10 M x 19 (seed 0) into one engine (scan,
-kd-tree, R*-tree, VA-file; tile_n = 1024) and measures, on one card:
+CUDA kernels and measures, on one card:
+
+- kernel 12, ``kv_visit_attention``, without building Qwen3-8B: one
+  layer's token-major K/V from seed 1 and the visit list the model's prune
+  makes (``chip_smoke.decode_kv_case``) at the long-context shape (2 x 268
+  MB, the decode's last step: 16 of 64 blocks of 512 keys) and at the
+  server shape (4 slots of 1,024, 4 of 32 blocks of 32 keys, positions
+  ``SERVER_POS``), timed by ``chip_smoke.kv_visit_timing`` (eager
+  CUDA-event ms, device ms and device kernels per call by torch.profiler,
+  host us per call) with int64 ids and positions (as the decode step
+  passes them), with int32 ones, and with int64 ids and int32 positions
+  (``mixed``: as the server passes them); the outputs and the plain
+  version's are kept for ``--compare``.
+
+With ``--kv-only`` it stops there. Otherwise it builds GMRQB at 10 M x 19 (seed 0) into one engine (scan,
+kd-tree, R*-tree, VA-file and the row scan; tile_n = 1024) and measures:
 
 - kernels 1, 2, 5 and 6 as ``chip_smoke.scan_rows`` measures them (the
   columnar scans at the first 128 queries of ``mixed_workload(seed=0)``,
-  at the bucket shapes of the main path and at Q = 1) and kernels 7-10 as
+  at the bucket shapes of the main path and at Q = 1), kernels 3 and 4 on
+  those masks (``chip_smoke.reducer_rows``), kernel 11 on the row scan's
+  copy (``chip_smoke.rows_row``) and kernels 7-10 as
   ``chip_smoke.visit_rows`` does (the visit kernel at the kd-tree's and the
   VA-file's lists for the first 128 queries, ``range_scan_visit`` for one
   query, the VA filter at Q = 128 and 1): each output held equal to its
@@ -30,8 +45,9 @@ kd-tree, R*-tree, VA-file; tile_n = 1024) and measures, on one card:
 It writes one JSON object to ``--out`` and prints the card's name and power
 limit as nvidia-smi gives them. The second form prints each number of the
 runs side by side (runs in the order given) and fails unless every run's
-results, op counts and launches per call are equal. Exits non-zero without
-a CUDA device.
+results, op counts and launches per call are equal, and every run's
+kernel-12 output is within ``chip_smoke.KV_RTOL`` of the first run's plain
+output (itself equal in every run). Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -46,6 +62,9 @@ CELLS = (("auto", (1, 8, 128)), ("scan", (8, 128)),
          ("scan_vertical", (8, 128)), ("kdtree", (8, 128)), ("rstar", (8, 128)),
          ("vafile", (8, 128)))
 Q_N = 128
+# kernel 12 at the server shape: the positions of chip_smoke's multi-block
+# server call with the most valid keys (4 slots, blocks 0-4)
+SERVER_POS = [77, 127, 80, 97]
 TIMED_CALLS = 5   # warm calls per qps cell (chip_smoke's own cells take 3)
 # ... and per cell at B <= 8: a call takes 2-5 ms on the host, whose noise
 # is largest there, so its median takes more calls
@@ -95,7 +114,40 @@ def drop_scan_hints() -> None:
         setattr(mod, name, without_hints)
 
 
-def measure(root: Path, label: str) -> dict:
+def kv_shapes(cs) -> dict:
+    """Kernel 12's shapes: (positions, slots, block, prune)."""
+    return {"long": ([cs.LONG_SLOTS - 2 - 64 * b for b in range(cs.LONG_B)],
+                     cs.LONG_SLOTS, cs.LONG_BLOCK, cs.LONG_PRUNE),
+            "server": (SERVER_POS, cs.LM_MAX_LEN, cs.LM_BLOCK, cs.LM_PRUNE)}
+
+
+def measure_kv(cs, label: str, out: dict) -> None:
+    """Kernel 12 at the long-context and the server shape (see the module
+    docstring)."""
+    from repro_torch.kernels import kv_visit, ref
+    out["kv"], out["kv_out"], out["kv_plain"] = {}, {}, {}
+    for shape, case in kv_shapes(cs).items():
+        q, kb, vb, ids, pos = cs.decode_kv_case(*case)
+        got = kv_visit.kv_visit_attention(q, kb, vb, ids, pos)
+        want = ref.kv_visit_attention_ref(q, kb, vb, ids, pos)
+        err, scale = cs.kv_err(got, want)
+        kv = {"err": err, "bound_ms": cs.kv_bound(q, ids, pos, case[2])[0]}
+        for tag, args in (("", (ids, pos)), (" int32", (ids.int(), pos.int())),
+                          (" mixed", (ids, pos.int()))):
+            t = cs.kv_visit_timing(q, kb, vb, *args)
+            for key in ("ms", "device_ms", "host_us", "kernels_per_call"):
+                kv[key + tag] = t[key]
+            print(f"[{label}] kv_visit_attention {shape}{tag or ' int64'}: "
+                  f"ms {t['ms']:.4f} device_ms {t['device_ms']:.4f} host_us "
+                  f"{t['host_us']:.1f}, {t['kernels_per_call']:g} device "
+                  f"kernels per call {t['kernel_names']}", flush=True)
+        out["kv"].update({f"{shape} {k}": v for k, v in kv.items()})
+        out["kv_out"][shape] = got.float().flatten().tolist()
+        out["kv_plain"][shape] = want.float().flatten().tolist()
+        del q, kb, vb
+
+
+def measure(root: Path, label: str, kv_only: bool = False) -> dict:
     cs = load(root)
     np, torch = cs.np, cs.torch
     if not torch.cuda.is_available():
@@ -107,11 +159,15 @@ def measure(root: Path, label: str) -> dict:
     smi = cs.nvidia_smi_line()
     print(f"[{label}] {smi}; root {root}", flush=True)
     _build.build()
-    ds = gmrqb.build(cs.N, seed=cs.SEED)
-    eng = MDRQEngine(ds, tile_n=cs.TILE_N)
-    queries = [q for _, q in gmrqb.mixed_workload(ds, Q_N, seed=cs.SEED)]
     out = {"label": label, "root": str(root), "smi": smi, "ms": {},
            "qps": {}, "counts": {}, "launches": {}, "results": {}}
+    measure_kv(cs, label, out)
+    if kv_only:
+        return out
+    torch.cuda.empty_cache()
+    ds = gmrqb.build(cs.N, seed=cs.SEED)
+    eng = MDRQEngine(ds, tile_n=cs.TILE_N, rowscan=True)
+    queries = [q for _, q in gmrqb.mixed_workload(ds, Q_N, seed=cs.SEED)]
 
     def row(name, source, replaces, err, ms, plain_ms, nbytes, ops_n, lib_ms,
             rate=cs.PEAK_F32_OPS_PER_S, shape=False):
@@ -119,7 +175,8 @@ def measure(root: Path, label: str) -> dict:
         print(f"[{label}] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, bound "
               f"{cs.bound_ms(nbytes, ops_n, rate)[0]:.4f})", flush=True)
 
-    cs.scan_rows(eng, queries, row)
+    cs.reducer_rows(eng, cs.scan_rows(eng, queries, row), row)
+    cs.rows_row(eng, queries, row)
     cs.visit_rows(eng, QueryBatch.from_queries(queries[:Q_N]), queries, row)
 
     for method, sizes in CELLS:
@@ -141,6 +198,9 @@ def measure(root: Path, label: str) -> dict:
 
 
 def compare(paths: list[str]) -> int:
+    import numpy as np
+    sys.path.insert(0, str(HERE))
+    from chip_smoke import KV_RTOL
     runs = [json.loads(Path(p).read_text()) for p in paths]
     labels = [r["label"] for r in runs]
     print("runs: " + ", ".join(f"{r['label']} ({r['smi']})" for r in runs))
@@ -149,7 +209,22 @@ def compare(paths: list[str]) -> int:
         for k in keys:
             print(f"{section:<4} {k:<48} " + "  ".join(
                 f"{lab}={fmt.format(r[section][k])}" for lab, r in zip(labels, runs)))
+    for k in runs[0]["kv"]:
+        print(f"kv   {k:<48} " + "  ".join(
+            f"{lab}={r['kv'][k]:.4f}" for lab, r in zip(labels, runs)))
     ok = True
+    for shape, plain in runs[0]["kv_plain"].items():
+        plain = np.asarray(plain)
+        limit = KV_RTOL * np.abs(plain).max()
+        for r in runs:
+            err = float(np.abs(np.asarray(r["kv_out"][shape]) - plain).max())
+            same = r["kv_plain"][shape] == runs[0]["kv_plain"][shape]
+            print(f"kv   {shape} {r['label']}: max |kernel - plain| {err:.4g} "
+                  f"(limit {limit:.4g}); plain output equal to the first "
+                  f"run's: {same}")
+            if err > limit or not same:
+                print(f"MISMATCH kv_visit_attention {shape}: {r['label']}")
+                ok = False
     for section in ("results", "counts", "launches"):
         for r in runs[1:]:
             if r[section] != runs[0][section]:
@@ -167,12 +242,14 @@ def main() -> int:
     ap.add_argument("--label")
     ap.add_argument("--out", type=Path)
     ap.add_argument("--compare", nargs="+")
+    ap.add_argument("--kv-only", action="store_true",
+                    help="time kernel 12 alone")
     args = ap.parse_args()
     if args.compare:
         return compare(args.compare)
     if not (args.root and args.label and args.out):
         ap.error("--root, --label and --out are required")
-    result = measure(args.root.resolve(), args.label)
+    result = measure(args.root.resolve(), args.label, args.kv_only)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result))
     return 0
