@@ -52,12 +52,37 @@ non-zero without printing a result:
                launched (each path's launches printed; the VA-file list's
                visit row counts the vafile path's alone).
   7. server  — ``MDRQServer(max_batch=64).serve_all`` on 256 queries under
-               Count, against ``query_batch``.
-  8. rowscan — the row-major scan path: ``query_batch(method="rowscan")`` at
+               Count, against ``query_batch``; the host cost of the op
+               layer's warm-key record per counted call.
+  8. calibrate — trace -> audit -> calibrate: the 128 mixed queries under
+               Count on each plannable path by name and under ``auto`` at
+               B in {1, 8, 32, 128} (each shape warmed, then traced); the
+               drift audit of both trace sets; ``auto`` B = 128's plan and
+               execute-span seconds, its per-bucket breakdown (host launch,
+               device, wait, copy, finalize) and the device ops of one
+               B = 128 batch by ``auto``, ``scan`` and ``scan_vertical``
+               (``torch.profiler``); ``Planner.calibrate`` on every trace's
+               sample and its report; ``auto`` at B in {8, 128} under the
+               placeholder and the fitted constants (warm qps and
+               ``method_counts``, every result equal to the plain engine's,
+               each bucket at its budget) beside each path by name; the
+               constants restored and ``auto`` planning as before. The scan,
+               visit and VA-filter kernels were launched.
+  9. pipeline — 2,048 Count queries of the mixed workload (seed 0), then the
+               first 256 under Ids, in windows of 128 through
+               ``MDRQServer`` and ``serve_pipelined(backlog=4)``: every
+               result equal to the synchronous server's and to
+               ``query_batch`` over the same windows, the same op counts,
+               no new warm key after ``warmup()`` (Count), shedding at a
+               1 us latency budget and serving again, correctly, once it
+               is raised; qps of both, finalize share, flush reasons, the
+               warmup report and the stream scheme. The scan kernels were
+               launched.
+ 10. rowscan — the row-major scan path: ``query_batch(method="rowscan")`` at
                B = 8 under the eight specs (one ``range_scan_rows`` launch and
                one host sync per query) and singles; the same checks, and
                ``range_scan_rows`` was launched.
-  9. delta   — the mutable plane. Through ``MDRQServer.append``/``delete``
+ 11. delta   — the mutable plane. Through ``MDRQServer.append``/``delete``
                on the engine under test (a query submitted before and after
                each call must see exactly the writes before it) and directly
                on the plain engine: 100,000 fresh GMRQB rows appended (seed 1,
@@ -69,7 +94,7 @@ non-zero without printing a result:
                TopK d3 per path, frozen and under the delta; the tombstone
                fold's time; ``compact()`` on both engines (id map, version 1,
                seconds, peak device memory), then the B = 128 checks again.
- 10. lm      — the LM decode-serving path, after both engines are freed.
+ 12. lm      — the LM decode-serving path, after both engines are freed.
                Qwen3-8B at full width and depth (36 layers, d_model 4096,
                random bf16 weights from a torch.Generator, seed 0):
                ``BatchServer(slots=4, max_len=1024)`` serves 8 requests
@@ -116,6 +141,7 @@ The last three lines are the kernel table (JSON), the nvidia-smi line, and
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -148,6 +174,16 @@ ORACLE_SAMPLE = 16        # queries per (B, spec) checked against numpy
 N_SINGLES = 8             # engine.query singles on the main path
 SERVER_QUERIES = 256
 TIMING_REPS = 10
+# The calibrate phase: the plannable paths traced by name (and "auto"), at
+# BATCH_SIZES; "auto" rerun under the fitted constants at these sizes.
+CAL_METHODS = ("scan", "scan_vertical", "kdtree", "rstar", "vafile")
+REFIT_BATCH_SIZES = (8, 128)
+# The pipeline phase: one stream served synchronously and pipelined.
+PIPE_BATCH = 128
+PIPE_BACKLOG = 4
+PIPE_COUNT_QUERIES = 2048
+PIPE_IDS_QUERIES = 256
+PIPE_TIMEOUT_S = 300.0    # any wait on the finalizer; also the main budget
 # float32 sums taken in different orders (kernel tree vs torch vs numpy
 # pairwise) over non-negative values: relative difference bound.
 AGG_SUM_RTOL = 1e-5
@@ -819,9 +855,11 @@ def result_specs() -> tuple:
 
 
 def run_checked(eng, eng_plain, oracle, qs, method, spec, label,
-                delta=False):
+                delta=False, same_plan=True):
     """One ``query_batch`` under the counters, held against its budget, the
-    plain engine and a numpy sample -> (results, method_counts)."""
+    plain engine (and its plan, unless ``same_plan`` is False: the engine
+    under test plans with other constants) and a numpy sample -> (results,
+    method_counts)."""
     from repro_torch.kernels import ops
     ops.reset_counters()
     got = eng.query_batch(qs, method=method, spec=spec)
@@ -831,7 +869,7 @@ def run_checked(eng, eng_plain, oracle, qs, method, spec, label,
     check(counts == want_counts,
           f"{label}: counters {counts} != {want_counts}")
     plain = eng_plain.query_batch(qs, method=method, spec=spec)
-    check(eng_plain.last_batch_stats.methods == stats.methods,
+    check(not same_plan or eng_plain.last_batch_stats.methods == stats.methods,
           f"{label}: plans differ from the plain engine's")
     for k, (x, y) in enumerate(zip(got, plain)):
         check(same_result(spec, x, y),
@@ -938,6 +976,296 @@ def server_phase(eng, ds):
     print(f"  server: {st.n_queries} queries in {st.n_batches} batches, "
           f"qps={st.qps:.1f}, flushes={st.flush_reasons}, "
           f"methods={st.method_counts}", flush=True)
+    print(f"  warm-key record: {warm_key_us(eng):.3f} us per counted op "
+          f"call (host)", flush=True)
+
+
+def warm_key_us(eng, calls: int = 20_000) -> float:
+    """Host microseconds ``ops.counted`` spends per call on the warm-key
+    record (the key of a B = 128 full-scan call, hashed and looked up in
+    the warm set); the counter bump it shares a lock with predates it."""
+    from repro_torch.core import Count
+    from repro_torch.kernels import ops
+    data = eng.columnar.data_dev
+    bounds = torch.zeros((data.shape[0], 128), device=data.device)
+    args = (data, bounds, bounds, None, None)
+    kw = dict(spec=Count(), tile_n=TILE_N, m=eng.dataset.m, rows=19,
+              backend="auto")
+    warm = set(ops.warm_keys())
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        _ = ops.warm_key("multi_scan_reduce", args, kw) in warm
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def indented(text: str) -> str:
+    return "\n".join("    " + line for line in text.splitlines())
+
+
+def bucket_breakdown(eng, qs, spec, reps: int = TIMED_CALLS) -> dict:
+    """Where one ``auto`` batch's time goes -> {"plan": s, path: {part: s}}.
+    Per bucket: the host's preparation and launches (``launch``), the
+    card's time from the first to the last queued operation (``device``,
+    CUDA events; it includes any gap the host leaves), the host's wait for
+    it after launching (``wait``), the counted copy (``copy``) and the host
+    finalizer (``finalize``). Medians of ``reps`` warm runs."""
+    from repro_torch.core import QueryBatch
+    from repro_torch.kernels import ops
+    batch = QueryBatch.from_queries(qs)
+    runs: dict = {}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        methods = eng.planner.plan_batch(batch, spec=spec).methods
+        runs.setdefault("plan", []).append(time.perf_counter() - t0)
+        buckets: dict = {}
+        for k, meth in enumerate(methods):
+            buckets.setdefault(meth, []).append(k)
+        for meth, idxs in buckets.items():
+            sub = QueryBatch(batch.lower[idxs], batch.upper[idxs])
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            payload, fin = eng.paths[meth].launch_batch(sub, spec=spec)
+            end.record()
+            t1 = time.perf_counter()
+            end.synchronize()
+            t2 = time.perf_counter()
+            host = ops.device_get(payload)
+            t3 = time.perf_counter()
+            fin(host)
+            t4 = time.perf_counter()
+            runs.setdefault((meth, len(idxs)), []).append(
+                (t1 - t0, start.elapsed_time(end) / 1e3, t2 - t1, t3 - t2,
+                 t4 - t3))
+    out = {"plan": float(np.median(runs.pop("plan")))}
+    for key, rows in runs.items():
+        med = np.median(np.asarray(rows), axis=0)
+        out[key] = dict(zip(("launch", "device", "wait", "copy", "finalize"),
+                            map(float, med)))
+    return out
+
+
+def batch_device_ops(eng, qs, method, spec) -> tuple[float, list]:
+    """torch.profiler over one warm ``query_batch`` -> (the summed device
+    ms of its device events, [(name, calls, device ms)] by device ms).
+    The profiler can drop a device event (``device_kernels``): a reading
+    with fewer events than another of the same batch lost some."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng.query_batch(qs, method=method, spec=spec)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.query_batch(qs, method=method, spec=spec)
+        torch.cuda.synchronize()
+    ops_ms: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            calls, ms = ops_ms.get(e.name, (0, 0.0))
+            ops_ms[e.name] = (calls + 1, ms + e.time_range.elapsed_us() / 1e3)
+    rows = sorted(((k, c, ms) for k, (c, ms) in ops_ms.items()),
+                  key=lambda r: -r[2])
+    return sum(ms for _, _, ms in rows), rows
+
+
+def calibrate_phase(eng, eng_plain, oracle, queries):
+    """Trace -> audit -> calibrate on the card, then restore the constants.
+
+    The 128 mixed queries under Count on each plannable path by name and
+    under ``auto`` at B in ``BATCH_SIZES`` (each shape warmed, then traced);
+    the drift audit of both trace sets; ``auto`` B = 128's plan and
+    execute-span seconds, ``bucket_breakdown`` and the device ops of one
+    B = 128 batch by ``auto``, ``scan`` and ``scan_vertical`` (profiler);
+    the calibration samples
+    of every trace fitted by ``Planner.calibrate``; ``auto`` at
+    ``REFIT_BATCH_SIZES`` under the placeholder and the fitted constants
+    (warm qps, ``method_counts``, every result equal to the plain engine's,
+    each bucket at its budget) beside each path by name; then the saved
+    constants back, and ``auto`` B = 128 planning as the plain engine does
+    again."""
+    from repro_torch import obs
+    from repro_torch.core import Count
+
+    spec = Count()
+    model = eng.planner.model
+    saved = dataclasses.asdict(model)
+    traces = []
+    for method in (*CAL_METHODS, "auto"):
+        for b in BATCH_SIZES:
+            qs = queries[:b]
+            eng.query_batch(qs, method=method, spec=spec)   # warm the shape
+            eng.query_batch(qs, method=method, spec=spec, trace=True)
+            traces.append((method, eng.last_trace))
+    named = [t for m, t in traces if m != "auto"]
+    auto = [t for m, t in traces if m == "auto"]
+    print("  audit, the paths by name (Count, B in 1, 8, 32, 128):")
+    print(indented(obs.audit(named).summary()))
+    print("  audit, auto:")
+    print(indented(obs.audit(auto).summary()), flush=True)
+    bt = auto[-1]
+    spans = [s for root in bt.spans for s in root.find("execute")]
+    print(f"  auto B=128 traced: plan {bt.plan_seconds * 1e3:.3f} ms of "
+          f"{bt.seconds * 1e3:.3f} ms; execute spans " + ", ".join(
+              f"{s.attrs['path']} ({s.attrs['bucket']} queries) "
+              f"{s.seconds * 1e3:.3f} ms" for s in spans), flush=True)
+    parts = bucket_breakdown(eng, queries[:128], spec)
+    print(f"  auto B=128 breakdown (median of {TIMED_CALLS}, ms): plan "
+          f"{parts.pop('plan') * 1e3:.3f}", flush=True)
+    for (meth, size), p in parts.items():
+        print(f"    {meth} ({size} queries): " + ", ".join(
+            f"{k} {v * 1e3:.3f}" for k, v in p.items()), flush=True)
+    for method in ("auto", "scan", "scan_vertical"):
+        total, rows = batch_device_ops(eng, queries[:128], method, spec)
+        print(f"  device ops of one {method} B=128 Count batch "
+              f"(torch.profiler): {total:.3f} ms in "
+              f"{sum(c for _, c, _ in rows)} events", flush=True)
+        for name, calls, ms in rows[:8]:
+            print(f"    {ms:8.3f} ms {calls:3d}x {name[:90]}", flush=True)
+
+    def auto_runs(label, same_plan):
+        out = {}
+        for b in REFIT_BATCH_SIZES:
+            qs = queries[:b]
+            _, counts = run_checked(eng, eng_plain, oracle, qs, "auto", spec,
+                                    f"calibrate {label} auto B={b}",
+                                    same_plan=same_plan)
+            out[b] = (warm_qps(eng, qs, "auto", spec), counts)
+        return out
+
+    placeholder = auto_runs("placeholder", True)
+    by_name = {(m, b): warm_qps(eng, queries[:b], m, spec)
+               for m in CAL_METHODS for b in REFIT_BATCH_SIZES}
+    samples = obs.calibration_samples([t for _, t in traces], model)
+    report = eng.planner.calibrate(samples)
+    print(f"  calibrate: {report.n_samples} samples from {report.methods}, "
+          f"rms_rel_err {report.rms_rel_err:.4g}", flush=True)
+    for f in report.fits:
+        print(f"    {f.constant}: fitted {f.fitted:.6g} "
+              f"({'accepted' if f.accepted else 'rejected'}: {f.reason}); "
+              f"placeholder {saved[f.constant]:.6g}", flush=True)
+    try:
+        fitted = auto_runs("fitted", False)
+    finally:
+        for name, value in saved.items():
+            setattr(model, name, value)
+    for b in REFIT_BATCH_SIZES:
+        print(f"  auto B={b:<3} placeholder {placeholder[b][0]:10.1f} qps "
+              f"{placeholder[b][1]}; fitted {fitted[b][0]:10.1f} qps "
+              f"{fitted[b][1]}", flush=True)
+        print("    by name: " + ", ".join(
+            f"{m} {by_name[(m, b)]:.1f}" for m in CAL_METHODS), flush=True)
+    check(dataclasses.asdict(model) == saved,
+          "calibrate: the saved constants were not restored")
+    run_checked(eng, eng_plain, oracle, queries, "auto", spec,
+                "calibrate restored auto B=128")
+
+
+def pipeline_phase(eng, ds):
+    """The same stream through ``MDRQServer`` and ``serve_pipelined``.
+
+    ``PIPE_COUNT_QUERIES`` Count queries of the mixed workload, then the
+    first ``PIPE_IDS_QUERIES`` of them under Ids, in windows of
+    ``PIPE_BATCH`` (no deadline flushes, so both servers cut the same
+    windows). Gates: every pipelined result equals the synchronous server's
+    and ``query_batch``'s over the same windows; the op counters of the
+    stream equal the synchronous server's; after ``warmup()`` the Count
+    stream adds no warm key; a latency budget far below one window's time
+    sheds, and the raised budget serves again, correctly. The Ids server is
+    not warmed: the warm batch matches every row, and at 10 M rows its Ids
+    would be ~80 MB per query.
+    """
+    from repro_torch.core import Count, Ids
+    from repro_torch.data import gmrqb
+    from repro_torch.kernels import ops
+    from repro_torch.serve import MDRQServer, Overloaded, serve_pipelined
+
+    stream = [q for _, q in gmrqb.mixed_workload(ds, PIPE_COUNT_QUERIES,
+                                                 seed=SEED)]
+    for spec, qs in ((Count(), stream), (Ids(), stream[:PIPE_IDS_QUERIES])):
+        label = f"pipeline {spec.kind}"
+        want = []
+        for i in range(0, len(qs), PIPE_BATCH):
+            want += eng.query_batch(qs[i:i + PIPE_BATCH], method="auto",
+                                    spec=spec)
+        sync = MDRQServer(eng, max_batch=PIPE_BATCH,
+                          max_wait_s=float("inf"), spec=spec)
+        ops.reset_counters()
+        t0 = time.perf_counter()
+        got = sync.serve_all(qs)
+        sync_wall = time.perf_counter() - t0
+        sync_counts = ops.counters()
+        check(all(same_result(spec, x, y) for x, y in zip(got, want)),
+              f"{label}: synchronous server != query_batch")
+        warm = spec.kind == "count"
+        srv = serve_pipelined(eng, max_batch=PIPE_BATCH,
+                              max_wait_s=float("inf"), spec=spec,
+                              backlog=PIPE_BACKLOG,
+                              latency_budget_s=PIPE_TIMEOUT_S, warmup=warm)
+        try:
+            ops.reset_counters()
+            ops.reset_trace_log()
+            t0 = time.perf_counter()
+            tickets = [srv.submit(q) for q in qs]
+            srv.drain(PIPE_TIMEOUT_S)
+            got = [t.result(timeout=PIPE_TIMEOUT_S) for t in tickets]
+            pipe_wall = time.perf_counter() - t0
+            counts, new_keys = ops.counters(), ops.trace_log()
+            check(len(got) == len(want) and all(
+                same_result(spec, x, y) for x, y in zip(got, want)),
+                f"{label}: pipelined results != the synchronous server's")
+            check(counts == sync_counts,
+                  f"{label}: counters {counts} != synchronous {sync_counts}")
+            st, ss = srv.stats, sync.stats
+            check(st.n_batches == ss.n_batches == -(-len(qs) // PIPE_BATCH),
+                  f"{label}: windows {st.n_batches} / {ss.n_batches}")
+            n = len(qs)
+            print(f"  {label}: {n} queries, {st.n_batches} windows of "
+                  f"{PIPE_BATCH}, backlog {PIPE_BACKLOG}, streams: "
+                  f"{srv.stream_scheme}; methods {st.method_counts}",
+                  flush=True)
+            print(f"    sync      qps {ss.qps:10.1f} (busy), "
+                  f"{n / sync_wall:10.1f} (wall {sync_wall:.4f} s); "
+                  f"plan {ss.plan_seconds:.4f} s", flush=True)
+            print(f"    pipelined qps {st.qps:10.1f} (wall_seconds "
+                  f"{st.wall_seconds:.4f}), {n / pipe_wall:10.1f} (wall "
+                  f"{pipe_wall:.4f} s); busy {st.busy_seconds:.4f} s, "
+                  f"plan {st.plan_seconds:.4f} s, finalize "
+                  f"{st.finalize_seconds:.4f} s (share of the wall "
+                  f"{st.finalize_seconds / st.wall_seconds:.3f}); flushes "
+                  f"{st.flush_reasons}; ratio pipelined / sync (wall) "
+                  f"{sync_wall / pipe_wall:.3f}", flush=True)
+            print(f"    counters per stream (both servers): {counts}",
+                  flush=True)
+            if not warm:
+                continue
+            rep = srv.last_warmup
+            print(f"    warmup: {rep.n_runs} runs over {rep.paths}, buckets "
+                  f"{rep.bucket_sizes}, vertical dims {rep.dim_counts}, "
+                  f"{len(rep.keys)} keys, {rep.seconds:.2f} s; new keys in "
+                  f"the stream: {len(new_keys)}", flush=True)
+            check(new_keys == (),
+                  f"{label}: the warmed stream added keys {new_keys[:4]}")
+            srv.latency_budget_s = 1e-6    # far below one window's time
+            shed = [srv.submit(q) for q in qs[:PIPE_BATCH]]
+            check(srv.stats.shed_counts.get("overloaded", 0) > 0
+                  and all(t.shed for t in shed) and srv.n_pending == 0,
+                  f"{label}: a 1 us budget shed {srv.stats.shed_counts}")
+            with contextlib.suppress(Overloaded):
+                shed[0].result(timeout=PIPE_TIMEOUT_S)
+                check(False, f"{label}: a shed ticket returned a result")
+            srv.latency_budget_s = PIPE_TIMEOUT_S
+            tickets = [srv.submit(q) for q in qs[:PIPE_BATCH]]
+            srv.drain(PIPE_TIMEOUT_S)
+            check(all(same_result(spec, t.result(timeout=PIPE_TIMEOUT_S), y)
+                      for t, y in zip(tickets, want)),
+                  f"{label}: results after recovery != query_batch")
+            print(f"    shed at a 1 us budget: {srv.stats.shed_counts}; "
+                  f"recovered at {PIPE_TIMEOUT_S:.0f} s: {PIPE_BATCH} "
+                  f"queries served, equal", flush=True)
+        finally:
+            srv.close(PIPE_TIMEOUT_S)
 
 
 def rowscan_phase(eng, eng_plain, oracle, queries):
@@ -1959,6 +2287,27 @@ def main() -> int:
 
     with phase("server"):
         server_phase(eng, ds)
+
+    # The serving slice: the kernels its paths run, counted over each phase.
+    def slice_launches(path, names):
+        launches = ops.kernel_launches()
+        print(f"  kernel launches on the {path}: {launches}", flush=True)
+        for name in names:
+            check(launches.get(name, 0) > 0,
+                  f"kernel {name} was not launched on the {path}")
+
+    with phase("calibrate"):
+        ops.reset_kernel_launches()
+        calibrate_phase(eng, eng_plain, oracle, queries)
+        slice_launches("calibrate phase", (
+            "multi_scan_tiles", "multi_scan_vertical", "multi_scan_visit",
+            "multi_va_filter_packed"))
+
+    with phase("pipeline"):
+        ops.reset_kernel_launches()
+        pipeline_phase(eng, ds)
+        slice_launches("pipeline phase", ("multi_scan_tiles",
+                                          "multi_scan_vertical"))
 
     with phase("rowscan"):
         ops.reset_kernel_launches()

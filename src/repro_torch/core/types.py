@@ -18,6 +18,7 @@ reducers touch torch tensors.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import ClassVar, Optional, Sequence
 
 import numpy as np
@@ -470,9 +471,31 @@ class DeltaHostCtx:
     delta_rows: np.ndarray      # (d, m) delta rows
 
 
-def resolve_spec(spec: Optional[ResultSpec] = None) -> ResultSpec:
+# The deprecated ``mode=`` strings the server still takes, and their specs.
+RESULT_MODES = ("ids", "count")
+_MODE_SPECS: dict[str, ResultSpec] = {"ids": IDS, "count": COUNT}
+
+
+def resolve_spec(spec: Optional[ResultSpec] = None,
+                 mode: Optional[str] = None) -> ResultSpec:
     """The spec argument of the public entry points: ``None`` means
-    ``Ids()``; anything that is not a ``ResultSpec`` is rejected."""
+    ``Ids()``; anything that is not a ``ResultSpec`` is rejected.
+
+    ``mode`` is the deprecated string alias (``"ids"`` / ``"count"``) of the
+    server's signature: it maps to ``Ids()`` / ``Count()`` with a
+    ``DeprecationWarning``; passing both is an error (ambiguous intent).
+    """
+    if mode is not None:
+        if spec is not None:
+            raise ValueError("pass spec= or the deprecated mode=, not both")
+        if mode not in _MODE_SPECS:
+            raise ValueError(f"unknown mode {mode!r}; options: {RESULT_MODES} "
+                             f"or a types.ResultSpec")
+        warnings.warn(
+            f"mode={mode!r} strings are deprecated; pass a ResultSpec "
+            f"(types.{_MODE_SPECS[mode].kind.capitalize()}()) instead",
+            DeprecationWarning, stacklevel=3)
+        return _MODE_SPECS[mode]
     if spec is None:
         return IDS
     if isinstance(spec, ResultSpec):

@@ -29,3 +29,15 @@ def synt_clust(n: int, m: int, n_clusters: int, seed: int = 0,
     lo = np.clip(centers[assign] - cluster_side / 2, 0.0, 1.0 - cluster_side)
     pts = lo + rng.random((n, m)) * cluster_side
     return T.Dataset(pts.astype(np.float32).T)
+
+
+def random_pair_query(dataset: T.Dataset, rng: np.random.Generator) -> T.RangeQuery:
+    """The paper's query generator: bounds from two random objects (§7.2.1)."""
+    i, j = rng.integers(dataset.n), rng.integers(dataset.n)
+    a, b = dataset.cols[:, i], dataset.cols[:, j]
+    return T.RangeQuery.complete(np.minimum(a, b), np.maximum(a, b))
+
+
+def workload(dataset: T.Dataset, n_queries: int, seed: int = 0) -> list[T.RangeQuery]:
+    rng = np.random.default_rng(seed)
+    return [random_pair_query(dataset, rng) for _ in range(n_queries)]

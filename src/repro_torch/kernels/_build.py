@@ -159,8 +159,10 @@ def launch(name: str, sym: str, device: torch.device, *args) -> None:
     if err != 0:
         msg = lib.mdrq_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({err}): {msg}")
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    with _LOCK:   # exact when two threads launch
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
 
 
 def reset_launches() -> None:
-    LAUNCHES.clear()
+    with _LOCK:
+        LAUNCHES.clear()

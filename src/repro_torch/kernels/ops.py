@@ -17,9 +17,26 @@ bumps a named launch counter in the metrics registry (family
 the counted device->host transfer point. Tests use the counters to assert
 launch/sync budgets (one fused launch and one host sync per bucket) that
 wall-clock measurements cannot see. ``kernel_launches()`` separately reports
-how often each CUDA kernel was actually launched.
+how often each CUDA kernel was actually launched. The counts stay exact when
+two threads bump them (the pipelined server launches on its admission thread
+and syncs on its finalizer thread): every bump takes one lock.
+
+Warm keys: the port compiles nothing per shape, so the counterpart of the
+reference's AOT cache is a record. Each counted call also notes its key —
+(op, each tensor argument's shape, dtype and device type, every other
+argument's value) — in the warm set; a key's first appearance is appended to
+``trace_log()``, the counterpart of the reference's retrace log. A cold key
+pays what a first use costs here (the ``_build`` load of the extensions, the
+caching allocator's first allocations of its shapes); a warm key has run
+once. ``serve.pipeline`` warms its hot path's keys at construction and
+asserts that steady traffic of the advertised shapes adds none. The
+scans' ``rows`` argument is left out of the key: it only picks one of the
+register instances compiled into the same library, so a new value costs
+nothing cold.
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -49,15 +66,26 @@ _LAUNCH_HELP = ("Kernel launches (and device->host transfers, op=host_sync) "
 # op name -> its registry Counter. Cached so the per-launch cost is one dict
 # lookup + one float add; registry reset() keeps these objects live.
 _COUNTERS: dict[str, _obs_metrics.Counter] = {}
+# Guards the counters and the warm set: a registry ``Counter.inc`` is a
+# read-modify-write, and the two serving threads both bump ``host_sync``.
+_LOCK = threading.Lock()
+_WARM: set = set()          # every warm key run since ``clear_warm_keys``
+_TRACE_LOG: list = []       # first appearances since ``reset_trace_log``
 
 
-def _bump(name: str) -> None:
-    c = _COUNTERS.get(name)
-    if c is None:
-        c = _obs_metrics.registry().counter(_LAUNCH_FAMILY, help=_LAUNCH_HELP,
-                                            op=name)
-        _COUNTERS[name] = c
-    c.inc()
+def _bump(name: str, key=None) -> None:
+    """Count one launch of op ``name`` (or one ``host_sync``); note its warm
+    ``key`` (counted ops pass one)."""
+    with _LOCK:
+        c = _COUNTERS.get(name)
+        if c is None:
+            c = _obs_metrics.registry().counter(_LAUNCH_FAMILY,
+                                                help=_LAUNCH_HELP, op=name)
+            _COUNTERS[name] = c
+        c.inc()
+        if key is not None and key not in _WARM:
+            _WARM.add(key)
+            _TRACE_LOG.append(key)
 
 
 def counter(name: str) -> int:
@@ -104,12 +132,59 @@ def _to_host(x):
     return x.cpu().numpy()
 
 
+# -- warm keys ------------------------------------------------------------------
+# Arguments that select among code already loaded, so no part of the key.
+_UNKEYED = frozenset({"rows"})
+
+
+def _abstract(x):
+    """Hashable key atom for one argument: a tensor collapses to (shape,
+    dtype, device type), a sequence to its atoms; anything else (sizes,
+    result specs, backends) stays."""
+    if isinstance(x, torch.Tensor):
+        return ("tensor", tuple(x.shape), str(x.dtype), x.device.type)
+    if isinstance(x, (tuple, list)):
+        return ("seq", tuple(_abstract(e) for e in x))
+    return x
+
+
+def warm_key(name: str, args: tuple, kwargs: dict) -> tuple:
+    """The warm-set key of one call of op ``name``."""
+    return (name, tuple(_abstract(a) for a in args),
+            tuple(sorted((k, _abstract(v)) for k, v in kwargs.items()
+                         if k not in _UNKEYED)))
+
+
+def trace_log() -> tuple:
+    """Keys run for the first time since the last ``reset_trace_log``, in
+    order — empty when every call since found its key warm."""
+    with _LOCK:
+        return tuple(_TRACE_LOG)
+
+
+def reset_trace_log() -> None:
+    with _LOCK:
+        _TRACE_LOG.clear()
+
+
+def warm_keys() -> tuple:
+    """Every key run since the last ``clear_warm_keys``."""
+    with _LOCK:
+        return tuple(_WARM)
+
+
+def clear_warm_keys() -> None:
+    with _LOCK:
+        _WARM.clear()
+
+
 def counted(name: str, doc: str):
-    """Build a public op: bump the named launch counter, then delegate. One
-    definition keeps every op in the accounting."""
+    """Build a public op: bump the named launch counter and note the call's
+    warm key, then delegate. One definition keeps every op in the
+    accounting."""
     def deco(fn):
         def wrapper(*args, **kwargs):
-            _bump(name)
+            _bump(name, warm_key(name, args, kwargs))
             return fn(*args, **kwargs)
         wrapper.__name__ = wrapper.__qualname__ = name
         wrapper.__doc__ = doc

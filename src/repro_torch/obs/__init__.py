@@ -8,9 +8,14 @@
     ``MDRQEngine.query_batch(..., trace=True)`` emits.
   * ``obs.querylog`` — the bounded reservoir-sampled query log
     ``MDRQServer`` keeps.
+  * ``obs.audit``    — estimated-vs-observed drift report per (path x
+    selectivity-decile) cell, and the bridge from traces to
+    ``Planner.calibrate``.
 
 This package never imports engine or kernel code.
 """
+from repro_torch.obs.audit import (AuditCell, DriftReport, audit,
+                                   calibration_samples)
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
                                      MetricsRegistry, registry)
 from repro_torch.obs.querylog import QueryLog, QueryLogEntry
@@ -18,6 +23,7 @@ from repro_torch.obs.tracing import (NULL_SPAN, BatchTrace, QueryTrace, Span,
                                      Tracer, enabled, span)
 
 __all__ = [
+    "AuditCell", "DriftReport", "audit", "calibration_samples",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "registry",
     "QueryLog", "QueryLogEntry",
     "NULL_SPAN", "BatchTrace", "QueryTrace", "Span", "Tracer", "enabled",

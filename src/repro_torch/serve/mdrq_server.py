@@ -13,7 +13,9 @@ are checked on every submit and on ``poll()`` (the idle-stream flush path an
 admission loop calls between arrivals), and ``Ticket.result()`` forces a flush
 of whatever is pending. Throughput accumulates in ``ServerStats``.
 
-Tickets resolve to whatever the server's ``ResultSpec`` finalizes to. Every
+Tickets resolve to whatever the server's ``ResultSpec`` finalizes to (the
+deprecated ``mode="ids"|"count"`` strings still resolve, with a
+``DeprecationWarning``). Every
 flush records why it fired ("size" | "deadline" | "forced") in
 ``ServerStats.flush_reasons``, in the metrics registry
 (``mdrq_server_flushes_total{reason=...}``) and on the query-log entries;
@@ -22,6 +24,10 @@ per-query queue and execute latency land in per-spec-kind histograms.
 Ingest (``append`` / ``delete`` / ``compact``) rides the same window: each
 call first flushes what is pending (reason "ingest"), so a query submitted
 before a write never sees it and one submitted after always does.
+
+The pipelined server (``serve.pipeline``) subclasses this one: it swaps in
+its own ticket type (``ticket_cls``) and fills the stats fields only it
+writes (``finalize_seconds``, ``wall_seconds``, ``shed_counts``).
 """
 from __future__ import annotations
 
@@ -63,7 +69,15 @@ class ServerStats:
     busy_seconds: float = 0.0
     # planning share of busy_seconds (BatchStats.plan_seconds summed)
     plan_seconds: float = 0.0
+    # host-finalize share (pipelined mode: the finalizer thread's stage wall)
+    finalize_seconds: float = 0.0
+    # wall clock from first submit to last finalize (pipelined mode only;
+    # 0.0 on the synchronous server). Under overlap, summing per-stage times
+    # double-counts concurrent work — qps must anchor to real elapsed time.
+    wall_seconds: float = 0.0
     n_results: int = 0
+    # queries shed by admission control, by reason ("overloaded")
+    shed_counts: dict[str, int] = dataclasses.field(default_factory=dict)
     # access-path buckets summed over every flushed batch
     method_counts: dict[str, int] = dataclasses.field(default_factory=dict)
     # served queries bucketed by result-spec kind ("ids", "count", "topk", ...)
@@ -81,9 +95,13 @@ class ServerStats:
 
     @property
     def qps(self) -> float:
-        """Sustained throughput over the time the window spent flushing."""
-        return self.n_queries / self.busy_seconds if self.busy_seconds > 0 \
-            else 0.0
+        """Sustained throughput. Synchronous serving divides by busy time
+        (the window only runs while a flush does); pipelined serving divides
+        by wall clock — device and finalize stages overlap, so their sum
+        exceeds elapsed time and would overstate throughput."""
+        denom = self.wall_seconds if self.wall_seconds > 0 \
+            else self.busy_seconds
+        return self.n_queries / denom if denom > 0 else 0.0
 
     @property
     def mean_batch_size(self) -> float:
@@ -118,6 +136,10 @@ class ServerStats:
 class MDRQServer:
     """Accumulates queries into batches and drives ``MDRQEngine.query_batch``."""
 
+    # Ticket type ``submit`` hands out — the pipelined subclass swaps in its
+    # event-backed ticket without re-implementing admission.
+    ticket_cls = Ticket
+
     def __init__(
         self,
         engine: MDRQEngine,
@@ -125,6 +147,7 @@ class MDRQServer:
         max_wait_s: float = 2e-3,
         method: str = "auto",
         spec: Optional[ResultSpec] = None,
+        mode: Optional[str] = None,
         query_log_capacity: int = 512,
     ):
         if max_batch < 1:
@@ -133,7 +156,7 @@ class MDRQServer:
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
         self.method = method
-        self.spec = resolve_spec(spec).validate(engine.dataset.m)
+        self.spec = resolve_spec(spec, mode).validate(engine.dataset.m)
         self.stats = ServerStats()
         # bounded uniform sample of everything ever served (obs.QueryLog)
         self.query_log = obs.QueryLog(capacity=query_log_capacity)
@@ -155,7 +178,7 @@ class MDRQServer:
             # batch they would fail every co-batched query's flush
             raise ValueError(
                 f"query dims {q.m} != dataset dims {self.engine.dataset.m}")
-        ticket = Ticket(self, spec=self.spec)
+        ticket = self.ticket_cls(self, spec=self.spec)
         now = time.perf_counter()
         if not self._pending:
             self._oldest_t = now

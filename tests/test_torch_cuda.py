@@ -30,14 +30,17 @@ one device kernel per call by torch.profiler), at the split plan's edges
 (one visit, more splits than visits, B * KV above the SM count, 64 visits,
 padding spread over the splits, a list with no valid key), its masking
 edge cases, and the reduced Qwen3 decode on the card against the plain
-backend and the CPU.
+backend and the CPU. The pipelined MDRQ server on its launch and copy
+streams: 20 windows back to back through backlog 4, and an append between
+windows, equal to the synchronous server in order; its warm set complete
+after ``warmup()``.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import (Agg, Count, Ids, Mask, MDRQEngine, QueryBatch,
-                              RangeQuery, TopK)
+                              RangeQuery, TopK, match_ids_np)
 from repro_torch.data import gmrqb
 from repro_torch.kernels import (multi_scan, ops, range_scan, ref, reducers,
                                  va_filter)
@@ -789,3 +792,89 @@ def test_decode_step_kernel_matches_plain_and_cpu(dev, kw):
         assert all(torch.equal(a, b) for a, b in zip(got_v, other_v))
     n_launch = ops.kernel_launches().get("kv_visit_attention", 0)
     assert n_launch == (toks.shape[1] * cfg.n_layers if kw else 0)
+
+
+# -- the pipelined server on the card ------------------------------------------
+
+PIPE_TIMEOUT = 300.0
+
+
+def _pipe_case(n=200_000, n_q=160):
+    ds = gmrqb.build(n, seed=5)
+    qs = [q for _, q in gmrqb.mixed_workload(ds, n_q, seed=6)]
+    return ds, MDRQEngine(ds, tile_n=1024), qs
+
+
+def _serve_pipelined(srv, qs):
+    tickets = [srv.submit(q) for q in qs]
+    srv.drain(PIPE_TIMEOUT)
+    return [t.result(timeout=PIPE_TIMEOUT) for t in tickets]
+
+
+@pytest.mark.parametrize("spec", [Ids(), Count(), TopK(k=5, dim=4)], ids=str)
+def test_pipelined_server_matches_sync_on_the_card(dev, spec):
+    """20 windows of 8 back to back through backlog 4 on the launch and copy
+    streams: every result equals the synchronous server's, in order (a copy
+    that read a reused or not yet written payload would differ), with the
+    same launches and syncs; then an append between windows: the windows
+    before it see the old rows, the windows after it the new ones."""
+    from repro_torch.serve import MDRQServer, serve_pipelined
+    ds, eng, qs = _pipe_case()
+    kw = dict(max_batch=8, max_wait_s=float("inf"), spec=spec)
+    ops.reset_counters()
+    want = MDRQServer(eng, **kw).serve_all(qs)
+    sync_counts = ops.counters()
+    with serve_pipelined(eng, backlog=4, latency_budget_s=1e9,
+                         warmup=False, **kw) as srv:
+        assert srv.stream_scheme == "launch+copy streams"
+        ops.reset_counters()
+        got = _serve_pipelined(srv, qs)
+        assert ops.counters() == sync_counts
+        assert srv.stats.n_batches == 20
+        for g, w in zip(got, want):
+            if isinstance(w, np.ndarray):
+                np.testing.assert_array_equal(g, w)
+            else:
+                assert g == w
+        extra = gmrqb.build(5_000, seed=7).rows()
+        before = [srv.submit(q) for q in qs[:40]]
+        srv.append(extra)
+        after = [srv.submit(q) for q in qs[:40]]
+        srv.drain(PIPE_TIMEOUT)
+        want_after = eng.query_batch(qs[:40], spec=spec)
+        for tickets, expect in ((before, want[:40]), (after, want_after)):
+            for t, w in zip(tickets, expect):
+                r = t.result(timeout=PIPE_TIMEOUT)
+                if isinstance(w, np.ndarray):
+                    np.testing.assert_array_equal(r, w)
+                else:
+                    assert r == w
+        srv.close(PIPE_TIMEOUT)
+    if spec.kind == "count":
+        all_rows = np.concatenate([ds.cols, extra.T], axis=1)
+        assert [t.result() for t in after] == \
+            [match_ids_np(all_rows, q).size for q in qs[:40]]
+    launches = ops.kernel_launches()
+    for name in ("multi_scan_tiles", "multi_scan_vertical"):
+        assert launches.get(name, 0) > 0, name
+
+
+@pytest.mark.parametrize("method", ["scan", "scan_vertical"])
+def test_pipelined_warm_set_is_complete_on_the_card(dev, method):
+    """After ``warmup()`` the extensions are loaded and the stream finds
+    every op key warm."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import serve_pipelined
+    _, eng, qs = _pipe_case(n=50_000, n_q=100)
+    ops.clear_warm_keys()
+    with serve_pipelined(eng, max_batch=32, max_wait_s=float("inf"),
+                         method=method, spec=Count(),
+                         latency_budget_s=1e9) as srv:
+        rep = srv.last_warmup
+        assert rep.keys and set(rep.keys) == set(ops.warm_keys())
+        assert _build._LIBS
+        ops.reset_trace_log()
+        _serve_pipelined(srv, qs)           # windows of 32, 32, 32, 4
+        assert ops.trace_log() == ()
+        assert srv.warmup().keys == ()
+        srv.close(PIPE_TIMEOUT)
