@@ -78,11 +78,32 @@ non-zero without printing a result:
                is raised; qps of both, finalize share, flush reasons, the
                warmup report and the stream scheme. The scan kernels were
                launched.
- 10. rowscan — the row-major scan path: ``query_batch(method="rowscan")`` at
+ 10. dist    — horizontal partitioning: ``MDRQEngine(structures=("scan",),
+               mesh=...)`` over the data phase's GMRQB at D = 1 (cuda:0) and
+               D = 8 (cuda:0 listed eight times: 8 shards of 1,250,304
+               objects), and a D = 8 engine on the plain backend.
+               ``query_batch`` by ``scan`` and ``auto`` at B in {1, 8, 128}
+               under Count, two TopK and three Agg, Ids and Mask at B in
+               {8, 32}, and ``engine.query`` singles (ids and Count): every
+               result equal to the unmeshed engine's scan and the plain
+               meshed engine's, a sample to numpy, repeated sums
+               bit-identical; one ``distributed_multi_reduce`` (or one
+               ``distributed_mask`` / ``distributed_count``) + one host sync
+               per bucket and single, and D launches of the scan kernel.
+               ``MDRQServer`` (256 Count queries) and ``serve_pipelined`` on
+               the D = 8 engine equal to ``query_batch``. Then 10,000 rows
+               appended and 10,000 ids deleted (tombstones in every shard)
+               on the D = 8 engine and its plain twin: B = 128 under the
+               eight specs against each other and numpy over the live rows,
+               then ``compact()`` (the mesh kept) and the same checks.
+               Printed: each mesh's layout, warm qps of Count, Agg sum and
+               TopK d3 at B = 128 beside the unmeshed ``scan``, the merge's
+               device ms, peak memory.
+ 11. rowscan — the row-major scan path: ``query_batch(method="rowscan")`` at
                B = 8 under the eight specs (one ``range_scan_rows`` launch and
                one host sync per query) and singles; the same checks, and
                ``range_scan_rows`` was launched.
- 11. delta   — the mutable plane. Through ``MDRQServer.append``/``delete``
+ 12. delta   — the mutable plane. Through ``MDRQServer.append``/``delete``
                on the engine under test (a query submitted before and after
                each call must see exactly the writes before it) and directly
                on the plain engine: 100,000 fresh GMRQB rows appended (seed 1,
@@ -94,7 +115,7 @@ non-zero without printing a result:
                TopK d3 per path, frozen and under the delta; the tombstone
                fold's time; ``compact()`` on both engines (id map, version 1,
                seconds, peak device memory), then the B = 128 checks again.
- 12. lm      — the LM decode-serving path, after both engines are freed.
+ 13. lm      — the LM decode-serving path, after both engines are freed.
                Qwen3-8B at full width and depth (36 layers, d_model 4096,
                random bf16 weights from a torch.Generator, seed 0):
                ``BatchServer(slots=4, max_len=1024)`` serves 8 requests
@@ -184,6 +205,14 @@ PIPE_BACKLOG = 4
 PIPE_COUNT_QUERIES = 2048
 PIPE_IDS_QUERIES = 256
 PIPE_TIMEOUT_S = 300.0    # any wait on the finalizer; also the main budget
+# The dist phase: meshes of D shards on the card (a mesh listing cuda:0 D
+# times); reduced specs at DIST_BATCH_SIZES, Ids and Mask at the host-bound
+# sizes; writes that put tombstones in every shard.
+DIST_SHARDS = (1, 8)
+DIST_BATCH_SIZES = (1, 8, 128)
+DIST_SERVER_QUERIES = 256
+DIST_DELTA_ROWS = 10_000
+DIST_DELTA_DEAD = 10_000  # 9,000 base ids and 1,000 of the new rows
 # float32 sums taken in different orders (kernel tree vs torch vs numpy
 # pairwise) over non-negative values: relative difference bound.
 AGG_SUM_RTOL = 1e-5
@@ -1268,6 +1297,262 @@ def pipeline_phase(eng, ds):
             srv.close(PIPE_TIMEOUT_S)
 
 
+def dist_specs() -> tuple:
+    """The reduced specs of the dist phase (the eight less Ids and Mask)."""
+    return tuple(s for s in result_specs() if s.kind not in ("ids", "mask"))
+
+
+def dist_checked(eng, d, qs, method, spec, label, want, plain, oracle,
+                 extra_scans=0):
+    """One ``query_batch`` of a meshed engine: one bucket on the sharded
+    scan at 1 ``distributed_multi_reduce`` + 1 host sync, ``d`` launches of
+    the scan kernel (one per shard; ``extra_scans`` for a delta block), and
+    every result equal to ``want`` (the unmeshed scan's), to ``plain`` (the
+    plain meshed engine's) and, on a sample, to ``oracle``."""
+    from repro_torch.kernels import ops
+    ops.reset_counters()
+    ops.reset_kernel_launches()
+    got = eng.query_batch(qs, method=method, spec=spec)
+    counts, launches = ops.counters(), ops.kernel_launches()
+    check(counts == {"distributed_multi_reduce": 1, "host_sync": 1},
+          f"{label}: counters {counts}")
+    check(eng.last_batch_stats.method_counts == {"scan": len(qs)},
+          f"{label}: buckets {eng.last_batch_stats.method_counts}")
+    check(launches.get("multi_scan_tiles", 0) == d + extra_scans,
+          f"{label}: multi_scan_tiles launched "
+          f"{launches.get('multi_scan_tiles', 0)} times, not {d}"
+          + (f" + {extra_scans}" if extra_scans else ""))
+    for k, (x, y, z) in enumerate(zip(got, want, plain)):
+        check(same_result(spec, x, y),
+              f"{label} query {k}: {x!r} != unmeshed {y!r}")
+        check(same_result(spec, x, z),
+              f"{label} query {k}: {x!r} != plain meshed {z!r}")
+    for k in range(min(len(qs), ORACLE_SAMPLE)):
+        w = oracle.result(spec, k, "scan")
+        check(same_result(spec, got[k], w),
+              f"{label} query {k}: {got[k]!r} != oracle {w!r}")
+    return got
+
+
+def dist_merge_ms(eng, qs) -> dict:
+    """CUDA-event ms of the merges on the mesh's first device at this batch
+    (Count's sum, Agg sum's sum, TopK d3's final top-k), from the shards'
+    partials; the shards' own kernels are not in these times."""
+    from repro_torch.core import QueryBatch
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.kernels import reducers
+
+    dsc = eng.dist
+    mesh = dsc.mesh
+    _, lo, up, rows = dsc._batch_bounds(QueryBatch.from_queries(qs))
+    masks = dist_mod._distributed_multi_mask(mesh, dsc.shards, lo, up,
+                                             **dsc._op_kw(rows))
+    counts = [x.ne(0).sum(dim=-1, dtype=torch.int32) for x in masks]
+    aggs = [reducers.masked_agg(x, s[3], "sum", tile_n=TILE_N,
+                                backend="auto")[0]
+            for x, s in zip(masks, dsc.shards)]
+    tops = [reducers.masked_topk(x, s[3], 10, True, tile_n=TILE_N,
+                                 backend="auto")
+            for x, s in zip(masks, dsc.shards)]
+    return {
+        "count": time_ms(lambda: torch.stack(mesh.gather(counts)).sum(
+            dim=0, dtype=torch.int32)),
+        "agg sum": time_ms(lambda: torch.stack(mesh.gather(aggs)).sum(dim=0)),
+        "topk": time_ms(lambda: reducers.merge_shard_topk(
+            [mesh.gather(p) for p in tops], dsc.n_local, 10, True)),
+    }
+
+
+def dist_phase(eng, ds, oracle, queries):
+    """Horizontal partitioning: ``MDRQEngine(mesh=...)`` at D shards of the
+    card against the unmeshed engine under test, the plain meshed engine
+    and numpy; the servers on the eight-shard engine; writes and
+    ``compact()``. Returns the launches of the path's kernels."""
+    from repro_torch.core import Count, MDRQEngine, make_data_mesh
+    from repro_torch.data import gmrqb
+    from repro_torch.kernels import ops
+    from repro_torch.serve import MDRQServer, serve_pipelined
+
+    torch.cuda.reset_peak_memory_stats()
+    dev = eng.device
+    meshes = {d: make_data_mesh(device=[dev] * d) for d in DIST_SHARDS}
+    t0 = time.perf_counter()
+    engines = {d: MDRQEngine(ds, structures=("scan",), tile_n=TILE_N,
+                             mesh=meshes[d]) for d in DIST_SHARDS}
+    d_max = max(DIST_SHARDS)
+    plain = MDRQEngine(ds, structures=("scan",), tile_n=TILE_N,
+                       mesh=meshes[d_max], backend="torch")
+    for d, e in engines.items():
+        dsc = e.dist
+        check(e._columnar is None and e.planner.model.n_devices == d
+              and dsc.n_local * d == dsc.n_pad and dsc.n_local % TILE_N == 0,
+              f"D={d}: engine layout")
+        print(f"  D={d}: n padded to {dsc.n_pad:,}, {d} shard(s) of "
+              f"{dsc.n_local:,} objects on {dsc.mesh.distinct}; per-shard "
+              f"multi_scan_tiles data ({dsc.m_pad}, {dsc.n_local:,}) float32, "
+              f"bounds ({dsc.m_pad}, q_pad), {d} launch(es) per bucket; "
+              f"planner n_devices {e.planner.model.n_devices}", flush=True)
+    print(f"  three meshed engines (D = 1, {d_max}, {d_max} plain) built in "
+          f"{time.perf_counter() - t0:.1f} s; device memory allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    phase_launches: dict[str, int] = {}
+
+    def tally():
+        for k, v in ops.kernel_launches().items():
+            phase_launches[k] = phase_launches.get(k, 0) + v
+
+    # -- batches and singles, frozen --
+    sizes = [(b, spec) for b in DIST_BATCH_SIZES for spec in dist_specs()]
+    sizes += [(b, spec) for b in HOST_BOUND_BATCH_SIZES
+              for spec in result_specs() if spec.kind in ("ids", "mask")]
+    for b, spec in sizes:
+        t0 = time.perf_counter()
+        qs = queries[:b]
+        want = eng.query_batch(qs, method="scan", spec=spec)
+        want_plain = plain.query_batch(qs, method="scan", spec=spec)
+        for d, e in engines.items():
+            for method in ("scan", "auto"):
+                got = dist_checked(e, d, qs, method, spec,
+                                   f"D={d} {method} B={b} {spec}", want,
+                                   want_plain, oracle)
+                tally()
+            if spec.kind == "agg" and spec.op == "sum":
+                again = e.query_batch(qs, method="scan", spec=spec)
+                check([np.float32(x).tobytes() for x in again]
+                      == [np.float32(x).tobytes() for x in got],
+                      f"D={d} B={b} {spec}: repeated sums differ in bits")
+        print(f"  B={b:<3} {str(spec):<38} D={DIST_SHARDS} scan and auto: "
+              f"equal to the unmeshed scan, the plain meshed engine and "
+              f"numpy; 1 op + 1 sync, D scan launches per bucket "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    for d, e in engines.items():
+        for i in range(N_SINGLES):
+            w = oracle.ids(i)
+            for method in ("scan", "auto"):
+                for spec, op in ((None, "distributed_mask"),
+                                 (Count(), "distributed_count")):
+                    ops.reset_counters()
+                    ops.reset_kernel_launches()
+                    got = e.query(queries[i], method=method, spec=spec)
+                    counts, launches = ops.counters(), ops.kernel_launches()
+                    tally()
+                    check(counts == {op: 1, "host_sync": 1},
+                          f"D={d} single {i} {method}: counters {counts}")
+                    check(launches.get("range_scan_tiles", 0) == d,
+                          f"D={d} single {i}: range_scan_tiles launched "
+                          f"{launches.get('range_scan_tiles', 0)} times")
+                    check(np.array_equal(got, w) if spec is None
+                          else got == w.size,
+                          f"D={d} single {i} {method} {spec}: != oracle")
+    print(f"  singles: {N_SINGLES} queries x (ids, Count) x (scan, auto) "
+          f"on each mesh equal numpy, 1 op + 1 sync, D range_scan_tiles "
+          f"launches each ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # -- warm qps at B = 128 --
+    qs = queries[:128]
+    for spec in qps_specs():
+        row = {"unmeshed scan": warm_qps(eng, qs, "scan", spec)}
+        for d, e in engines.items():
+            row[f"D={d}"] = warm_qps(e, qs, "scan", spec)
+        print(f"  warm qps B=128 {str(spec):<38} " + ", ".join(
+            f"{k} {v:10.1f}" for k, v in row.items()), flush=True)
+
+    # -- serving on the eight-shard engine --
+    t0 = time.perf_counter()
+    e8 = engines[d_max]
+    stream = [q for _, q in gmrqb.mixed_workload(ds, DIST_SERVER_QUERIES,
+                                                 seed=SEED)]
+    want = eng.query_batch(stream, method="scan", spec=Count())
+    check(e8.query_batch(stream, method="auto", spec=Count()) == want,
+          f"D={d_max}: query_batch of the server stream != unmeshed")
+    srv = MDRQServer(e8, max_batch=64, spec=Count())
+    ops.reset_kernel_launches()
+    check(srv.serve_all(stream) == want,
+          f"D={d_max}: MDRQServer results != query_batch")
+    tally()
+    print(f"  MDRQServer on D={d_max}: {srv.stats.n_queries} Count queries "
+          f"in {srv.stats.n_batches} batches, qps={srv.stats.qps:.1f}, "
+          f"equal to query_batch", flush=True)
+    pipe = serve_pipelined(e8, max_batch=PIPE_BATCH, max_wait_s=float("inf"),
+                           spec=Count(), backlog=PIPE_BACKLOG,
+                           latency_budget_s=PIPE_TIMEOUT_S, warmup=False)
+    try:
+        ops.reset_counters()
+        ops.reset_kernel_launches()
+        tickets = [pipe.submit(q) for q in stream]
+        pipe.drain(PIPE_TIMEOUT_S)
+        got = [t.result(timeout=PIPE_TIMEOUT_S) for t in tickets]
+        counts = ops.counters()
+        tally()
+    finally:
+        pipe.close(PIPE_TIMEOUT_S)
+    windows = -(-len(stream) // PIPE_BATCH)
+    check(got == want, f"D={d_max}: pipelined results != query_batch")
+    check(counts == {"distributed_multi_reduce": windows,
+                     "host_sync": windows},
+          f"D={d_max}: pipelined counters {counts}")
+    print(f"  serve_pipelined on D={d_max}: {len(stream)} Count queries in "
+          f"{windows} windows of {PIPE_BATCH}, equal to query_batch, "
+          f"counters {counts}, streams: {pipe.stream_scheme} (serving "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+    merge = dist_merge_ms(e8, queries[:128])
+    print(f"  merge on the first device, B=128, D={d_max} (CUDA events): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in merge.items()),
+          flush=True)
+
+    # -- writes, then compaction --
+    extra = gmrqb.build(DIST_DELTA_ROWS, seed=2).rows()
+    rng = np.random.default_rng(2)
+    n_new_dead = DIST_DELTA_DEAD // 10
+    dead = np.concatenate([
+        rng.choice(N, DIST_DELTA_DEAD - n_new_dead, replace=False),
+        N + rng.choice(DIST_DELTA_ROWS, n_new_dead, replace=False)])
+    for e in (e8, plain):
+        check(np.array_equal(e.append(extra), N + np.arange(DIST_DELTA_ROWS)),
+              "dist: append ids")
+        check(e.delete(dead) == dead.size, "dist: delete count")
+    hit = np.unique(dead[dead < N] // e8.dist.n_local).size
+    check(hit >= 3, f"dist: tombstones in {hit} shards")
+    alive = np.ones(N + DIST_DELTA_ROWS, bool)
+    alive[dead] = False
+    cols = np.concatenate([ds.cols, np.ascontiguousarray(extra.T)], axis=1)
+    for label, orc, extra_scans in (
+            ("delta", Oracle(eng, cols, queries, alive=alive, n_base=N), 1),
+            ("compacted", None, 0)):
+        t0 = time.perf_counter()
+        if orc is None:
+            t0 = time.perf_counter()
+            id_map = e8.compact()
+            compact_s = time.perf_counter() - t0
+            check(np.array_equal(plain.compact(), id_map),
+                  "dist compact: id maps differ")
+            check(e8.version == plain.version == 1 and e8.dist is not None
+                  and e8.dist.mesh == meshes[d_max] and e8._columnar is None,
+                  "dist compact: the mesh was not kept")
+            check(np.array_equal(np.nonzero(id_map < 0)[0], np.sort(dead)),
+                  "dist compact: -1 not exactly on the deleted ids")
+            orc = Oracle(eng, e8.dataset.cols, queries)
+            print(f"  compact on D={d_max}: {compact_s:.1f} s; "
+                  f"{e8.dataset.n:,} live rows, shards of "
+                  f"{e8.dist.n_local:,}", flush=True)
+        qs = queries[:128]
+        for spec in result_specs():
+            got_plain = plain.query_batch(qs, method="scan", spec=spec)
+            dist_checked(e8, d_max, qs, "scan", spec,
+                         f"{label} D={d_max} B=128 {spec}", got_plain,
+                         got_plain, orc, extra_scans=extra_scans)
+            tally()
+        print(f"  {label}: D={d_max} B=128 under 8 specs equal to the plain "
+              f"meshed engine and numpy ({ORACLE_SAMPLE} queries); "
+              f"{d_max}{' + 1' if extra_scans else ''} scan launches per "
+              f"bucket ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"  dist peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    return phase_launches
+
+
 def rowscan_phase(eng, eng_plain, oracle, queries):
     """The row-major scan path by name, checked like the main path."""
     from repro_torch.core import Count
@@ -2308,6 +2593,16 @@ def main() -> int:
         pipeline_phase(eng, ds)
         slice_launches("pipeline phase", ("multi_scan_tiles",
                                           "multi_scan_vertical"))
+
+    with phase("dist"):
+        launches = dist_phase(eng, ds, oracle, queries)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  kernel launches on the dist path: {launches}", flush=True)
+        for name in ("multi_scan_tiles", "range_scan_tiles",
+                     "masked_fill_tiles", "masked_agg_tiles"):
+            check(launches.get(name, 0) > 0,
+                  f"kernel {name} was not launched on the dist path")
 
     with phase("rowscan"):
         ops.reset_kernel_launches()

@@ -9,6 +9,8 @@ Public API:
   * mutable plane: ``MutableDelta``, ``DeltaView``, ``Compactor``,
     ``DeltaHostCtx``
   * engine: ``MDRQEngine`` (the access-path registry), ``engine_from_arrays``
+  * horizontal partitioning: ``DistributedScan``, ``make_data_mesh``
+    (``DataMesh``; ``MDRQEngine(mesh=...)`` shards the scan)
   * access-path layer: ``AccessPath`` protocol + adapters (``core.paths``)
   * planning: ``Planner``, ``Histograms``, ``CostModel``, ``BatchPlan``
 """
@@ -30,6 +32,8 @@ from repro_torch.core.planner import (BatchPlan, CalibrationFit,
                                       CalibrationReport, CostModel,
                                       Histograms, Planner)
 from repro_torch.core.state import engine_from_arrays
+from repro_torch.core.distributed import (DataMesh, DistributedScan,
+                                          make_data_mesh)
 
 __all__ = [
     "Dataset", "QueryBatch", "RangeQuery", "match_ids_np", "match_mask_np",
@@ -41,5 +45,5 @@ __all__ = [
     "build_vafile", "BlockedIndex", "VAFile", "RowScan", "build_row_scan",
     "MutableDelta", "DeltaView", "Compactor", "DeltaHostCtx",
     "BatchPlan", "CalibrationFit", "CalibrationReport", "CostModel",
-    "Histograms", "Planner",
+    "Histograms", "Planner", "DataMesh", "DistributedScan", "make_data_mesh",
 ]

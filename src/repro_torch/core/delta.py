@@ -113,17 +113,22 @@ class DeltaView:
 
     def base_tomb_dev(self, n_pad: int, device,
                       perm: Optional[np.ndarray] = None,
-                      key=None) -> Optional[torch.Tensor]:
+                      key=None, shard: Optional[tuple[int, int]] = None
+                      ) -> Optional[torch.Tensor]:
         """(n_pad,) int8 base-tombstone vector in a structure's storage
         order on ``device``, or None when no base row is tombstoned.
 
         ``perm`` maps storage position -> original row id (the tree
         layouts); storage-order layouts (scan, VA-file) omit it and share
-        the default ``key``.
+        the default ``key``. ``shard=(s, n_local)`` gives shard s's part
+        of the vector, positions ``[s * n_local, (s + 1) * n_local)`` (the
+        sharded scan's placement); it is cached per shard index, since
+        shards may share one device.
         """
         if not self.has_base_tombs:
             return None
         key = (("_id", int(n_pad)) if key is None else key,
+               None if shard is None else int(shard[0]),
                str(torch.device(device)))
         arr = self._tomb_cache.get(key)
         if arr is None:
@@ -132,6 +137,9 @@ class DeltaView:
                 host[:self.n_base] = self.base_tomb
             else:
                 host[:len(perm)] = self.base_tomb[perm]
+            if shard is not None:
+                s, n_local = shard
+                host = host[s * n_local:(s + 1) * n_local].copy()
             arr = torch.as_tensor(host, device=device)
             self._tomb_cache[key] = arr
         return arr

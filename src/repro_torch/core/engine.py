@@ -8,6 +8,12 @@ VA-file, plus the row-major scan with ``rowscan=True`` — registers each
 behind its ``core.paths`` adapter, and answers range queries either with an
 explicitly named path or through the planner ("auto").
 
+Horizontal partitioning: ``mesh=`` (a ``core.distributed.DataMesh``) makes
+``"scan"`` the sharded scan — data split over the mesh's shards, one counted
+op per batch — and the planner prices the scan for the mesh's D shards. The
+single-device columnar copy is then built only when a path that runs on it
+is used (the vertical scan, by name only; the VA-file, at build).
+
 The mutable plane: ``append``/``delete`` land in a versioned delta segment
 (``core.delta``) that every batch launch scans beside the frozen structures,
 and ``compact`` folds it back into freshly built structures. Each version —
@@ -44,6 +50,7 @@ from repro_torch.core import types as T
 from repro_torch.core import delta as delta_mod
 from repro_torch.core import scan as scan_mod
 from repro_torch.core import paths as paths_mod
+from repro_torch.core.distributed import DataMesh, DistributedScan
 from repro_torch.core.kdtree import build_kdtree
 from repro_torch.core.planner import CostModel, Histograms, Planner
 from repro_torch.core.rstar import build_rstar
@@ -160,6 +167,29 @@ def _as_batch(queries) -> Optional[T.QueryBatch]:
     return T.QueryBatch.from_queries(queries) if queries else None
 
 
+class _LazyColumnar:
+    """The single-device columnar scan, built at first use. A meshed engine
+    holds its data sharded; this copy appears only when a path that runs on
+    it is used. (A holder, not the state: the vertical scan's view reaches
+    this, never the state itself.)"""
+
+    def __init__(self, dataset: T.Dataset, tile_n: int, device, backend: str,
+                 build_seconds: dict, name: str):
+        self._args = (dataset, tile_n, device, backend)
+        self._build_seconds = build_seconds
+        self._name = name   # its build_seconds entry
+        self.scan: Optional[scan_mod.ColumnarScan] = None
+
+    def get(self) -> scan_mod.ColumnarScan:
+        if self.scan is None:
+            dataset, tile_n, device, backend = self._args
+            t0 = time.perf_counter()
+            self.scan = scan_mod.build_columnar_scan(
+                dataset, tile_n=tile_n, device=device, backend=backend)
+            self._build_seconds[self._name] = time.perf_counter() - t0
+        return self.scan
+
+
 class _EngineState:
     """One immutable *version* of the engine: the structures built from a
     dataset snapshot, their access-path registry and planner, and the
@@ -172,7 +202,8 @@ class _EngineState:
 
     def __init__(self, dataset: T.Dataset, structures: tuple[str, ...],
                  tile_n: int, rowscan: bool, device: torch.device,
-                 backend: str, version: int = 0):
+                 backend: str, mesh: Optional[DataMesh] = None,
+                 version: int = 0):
         self.dataset = dataset
         self.version = version
         # host seconds of each structure's build (numpy, then the copy to
@@ -187,15 +218,25 @@ class _EngineState:
             self.build_seconds[name] = time.perf_counter() - t0
             return out
 
-        self.columnar = build("scan", True, scan_mod.build_columnar_scan,
-                              tile_n=tile_n, device=device)
+        # With a mesh, "scan" is the sharded scan (one counted op per batch
+        # over every shard), and the single-device copy waits for its first
+        # use; without one, that copy is the scan.
+        self.dist = build("scan", mesh is not None, DistributedScan,
+                          mesh=mesh, tile_n=tile_n)
+        self._lazy = _LazyColumnar(dataset, tile_n, device, backend,
+                                   self.build_seconds,
+                                   "scan" if mesh is None else "columnar")
+        if mesh is None:
+            self._lazy.get()
         self.kdtree = build("kdtree", "kdtree" in structures, build_kdtree,
                             tile_n=tile_n, device=device)
         self.rstar = build("rstar", "rstar" in structures, build_rstar,
                            tile_n=tile_n, device=device)
-        # The VA-file refines in storage order: it shares the scan's copy.
-        self.vafile = build("vafile", "vafile" in structures, build_vafile,
-                            tile_n=tile_n, data_dev=self.columnar.data_dev)
+        # The VA-file refines in storage order: it shares the single-device
+        # copy (on a meshed engine, building it builds that copy).
+        self.vafile = (build("vafile", True, build_vafile, tile_n=tile_n,
+                             data_dev=self.columnar.data_dev)
+                       if "vafile" in structures else None)
         self.rowscan = build("rowscan", rowscan, scan_mod.build_row_scan,
                              device=device)
         self.hist = Histograms.build(dataset)
@@ -205,12 +246,19 @@ class _EngineState:
         # Every built structure registers as a plannable path, or "auto"
         # could never choose it.
         self.paths: dict[str, paths_mod.AccessPath] = {}
-        columnar = self.columnar
-        self.add_path(paths_mod.ColumnarScanPath(columnar))
-        # The view captures the scan, not ``self``: a state must not reach
+        # The view captures the holder, not ``self``: a state must not reach
         # itself, or a replaced version's device tensors would wait for the
         # cycle collector instead of going at the compaction swap.
-        self.add_path(paths_mod.VerticalScanPath(lambda: columnar))
+        lazy = self._lazy
+        if self.dist is not None:
+            self.add_path(paths_mod.DistributedScanPath(self.dist))
+            # Not plannable here: an "auto" choice would place a second,
+            # unsharded copy of the dataset on one device.
+            self.add_path(paths_mod.VerticalScanPath(lazy.get,
+                                                     plannable=False))
+        else:
+            self.add_path(paths_mod.ColumnarScanPath(lazy.get()))
+            self.add_path(paths_mod.VerticalScanPath(lazy.get))
         if self.rowscan is not None:
             # No fused batch kernel for the row layout: the per-query rung;
             # the host columns serve the reduced specs' from_ids.
@@ -223,9 +271,23 @@ class _EngineState:
             self.add_path(paths_mod.VAFilePath(self.vafile, self.hist))
         # The planner shares the registry dict: paths registered later are
         # planned without rebuilding anything.
+        # A mesh's D shards price the scan as D devices would, as the
+        # reference does, even where several shards share one card.
         self.planner = Planner(
-            self.hist, CostModel(n=dataset.n, m=dataset.m, tile_n=tile_n),
+            self.hist, CostModel(n=dataset.n, m=dataset.m, tile_n=tile_n,
+                                 n_devices=(mesh.size if mesh is not None
+                                            else 1)),
             paths=self.paths)
+
+    @property
+    def columnar(self) -> scan_mod.ColumnarScan:
+        """The single-device columnar scan (built now if it was not)."""
+        return self._lazy.get()
+
+    @property
+    def _columnar(self) -> Optional[scan_mod.ColumnarScan]:
+        """The single-device columnar scan, or None while it is unbuilt."""
+        return self._lazy.scan
 
     def add_path(self, path: paths_mod.AccessPath) -> None:
         for attr in ("name", "plannable", "owns_storage", "nbytes_index",
@@ -237,9 +299,14 @@ class _EngineState:
 
 
 class MDRQEngine:
-    """Build-once, query-many MDRQ engine over one device, with a mutable
-    plane: ``append``/``delete`` land in a versioned delta segment and
-    ``compact`` folds it back into freshly built structures."""
+    """Build-once, query-many MDRQ engine over one device (or, for the scan,
+    the shards of a ``mesh``), with a mutable plane: ``append``/``delete``
+    land in a versioned delta segment and ``compact`` folds it back into
+    freshly built structures.
+
+    ``device`` defaults to the mesh's first device on a meshed engine, else
+    to ``cuda``; the structures other than the sharded scan live there.
+    """
 
     def __init__(
         self,
@@ -249,6 +316,7 @@ class MDRQEngine:
         rowscan: bool = False,
         device=None,
         backend: str = "auto",
+        mesh: Optional[DataMesh] = None,
     ):
         for name in structures:
             if name not in STRUCTURES:
@@ -259,7 +327,12 @@ class MDRQEngine:
         self._structures = tuple(structures)
         self.tile_n = tile_n
         self._rowscan_enabled = bool(rowscan)
-        self.device = resolve_device(device)
+        if mesh is not None and not isinstance(mesh, DataMesh):
+            raise TypeError(f"mesh must be a core.distributed.DataMesh, got "
+                            f"{type(mesh).__name__}")
+        self._mesh = mesh
+        self.device = resolve_device(
+            mesh.first if device is None and mesh is not None else device)
         self._backend = ops.check_backend(backend)
         # Serializes the write side (append/delete/compact-commit); the read
         # side is lock-free — queries capture ``self._state`` once.
@@ -272,7 +345,7 @@ class MDRQEngine:
     def _build_state(self, dataset: T.Dataset, version: int = 0) -> _EngineState:
         return _EngineState(dataset, self._structures, self.tile_n,
                             self._rowscan_enabled, self.device, self._backend,
-                            version=version)
+                            mesh=self._mesh, version=version)
 
     # -- versioned-state views ---------------------------------------------
     # Callers read these as plain attributes; each delegates to the
@@ -284,8 +357,24 @@ class MDRQEngine:
         return self._state.dataset
 
     @property
+    def mesh(self) -> Optional[DataMesh]:
+        return self._mesh
+
+    @property
+    def dist(self) -> Optional[DistributedScan]:
+        """The sharded scan of a meshed engine (None without a mesh)."""
+        return self._state.dist
+
+    @property
     def columnar(self) -> scan_mod.ColumnarScan:
+        """The single-device columnar scan; on a meshed engine reading it
+        builds it."""
         return self._state.columnar
+
+    @property
+    def _columnar(self) -> Optional[scan_mod.ColumnarScan]:
+        # None until a meshed engine's single-device copy is built
+        return self._state._columnar
 
     @property
     def kdtree(self):

@@ -2,7 +2,8 @@
 
 Ports ``repro/core/paths.py``: ``AccessPath`` is the protocol every path
 speaks, ``ColumnarScanPath`` and ``VerticalScanPath`` put the columnar scan
-behind it, ``BlockedIndexPath`` the kd-tree and the R*-tree, ``VAFilePath``
+behind it (``DistributedScanPath`` the sharded scan of a meshed engine),
+``BlockedIndexPath`` the kd-tree and the R*-tree, ``VAFilePath``
 the VA-file, ``PerQueryPath`` adapts anything that only has single-query
 methods, and ``MDRQEngine`` is a name -> path registry.
 
@@ -17,7 +18,9 @@ Conventions:
   * ``cost``/``cost_batch`` return ``inf`` where the path is not applicable
     (the vertical scan on a complete-match query) — the planner skips
     non-finite entries.
-  * ``plannable=False`` paths execute only when named explicitly.
+  * ``plannable=False`` paths execute only when named explicitly (the row
+    scan; the vertical scan on a meshed engine, where an "auto" choice would
+    place a second, unsharded copy of the dataset on one device).
   * ``owns_storage=False`` marks views over another path's arrays so
     ``memory_report`` never double-counts.
 """
@@ -238,9 +241,45 @@ class ColumnarScanPath(ScanCost):
             return self._scan.launch_batch(batch, spec=spec, delta=delta)
 
 
+class DistributedScanPath(ScanCost):
+    """``DistributedScan`` as the "scan" path — one counted op per batch,
+    data sharded over a mesh (horizontal partitioning, §3.1)."""
+
+    name = "scan"
+    plannable = True
+    owns_storage = True
+
+    def __init__(self, dist):
+        self._dist = dist
+
+    @property
+    def nbytes_index(self) -> int:
+        return self._dist.nbytes_index
+
+    def query(self, q: T.RangeQuery) -> np.ndarray:
+        return self._dist.query(q)
+
+    def count(self, q: T.RangeQuery) -> int:
+        return self._dist.count(q)
+
+    def query_batch(self, batch: T.QueryBatch,
+                    spec: T.ResultSpec = T.IDS, delta=None) -> Results:
+        with _path_span(self, batch, spec) as sp:
+            out = self._dist.query_batch(batch, spec=spec, delta=delta)
+            sp.block_on(out)
+        return out
+
+    def launch_batch(self, batch: T.QueryBatch,
+                     spec: T.ResultSpec = T.IDS, delta=None) -> tuple:
+        with _path_span(self, batch, spec, stage="launch"):
+            return self._dist.launch_batch(batch, spec=spec, delta=delta)
+
+
 class VerticalScanPath(VerticalScanCost):
     """The partial-match vertical scan (§5.5) as its own path: a *view* over
-    the columnar scan's storage (``owns_storage=False``)."""
+    the columnar scan's storage (``owns_storage=False``), reached through
+    ``scan_ref`` so a meshed engine builds that copy only when the path is
+    named."""
 
     name = "scan_vertical"
     owns_storage = False

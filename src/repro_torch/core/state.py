@@ -17,8 +17,9 @@ from repro_torch.core.engine import STRUCTURES, MDRQEngine
 
 def engine_from_arrays(cols: np.ndarray, *, tile_n: int = 1024,
                        structures: tuple[str, ...] = STRUCTURES,
-                       device=None) -> MDRQEngine:
+                       device=None, mesh=None) -> MDRQEngine:
     """The port's engine over ``cols`` ((m, n) float32, the reference's
-    ``Dataset.cols``), on ``device`` (``None`` = cuda)."""
+    ``Dataset.cols``), on ``device`` (``None`` = cuda, or the first device
+    of ``mesh``, a ``core.distributed.DataMesh`` the scan shards over)."""
     return MDRQEngine(T.Dataset(cols), structures=structures, tile_n=tile_n,
-                      device=device)
+                      device=device, mesh=mesh)

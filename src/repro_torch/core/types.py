@@ -63,6 +63,10 @@ class ResultSpec:
     """
 
     kind: ClassVar[str] = "abstract"
+    # True when the payload of a sharded scan stays per shard (Ids, Mask:
+    # the shards' masks, concatenated on the host); False when the shards'
+    # partials merge on the mesh's first device (Count, TopK, Agg).
+    sharded_payload: ClassVar[bool] = False
     # True when ``reduce_visits`` consumes the host-built (Q, M) visit-index
     # table; everyone else gets a (1, 1) placeholder, so the two-phase paths
     # skip building and shipping it.
@@ -91,6 +95,15 @@ class ResultSpec:
                       backend: str):
         """(V_pad, tile_n) two-phase visit masks -> device payload."""
         return masks
+
+    def distributed_reduce(self, masks_by_shard, data_by_shard, mesh, *,
+                           tile_n: int, backend: str):
+        """Per-shard (q_pad, n_local) masks -> payload of a sharded scan
+        (``core.distributed``): the identity here, the masks in shard
+        order. ``data_by_shard`` holds each shard's (m_pad, n_local) block;
+        reducing specs merge their partials on ``mesh.first`` in shard
+        order."""
+        return tuple(masks_by_shard)
 
     # -- host finalizers ------------------------------------------------------
     def finalize(self, payload, q_n: int, n: int) -> list:
@@ -149,6 +162,7 @@ class Ids(ResultSpec):
     """Sorted matching identifiers — the paper's §2.1 result definition."""
 
     kind: ClassVar[str] = "ids"
+    sharded_payload: ClassVar[bool] = True
 
     def finalize(self, payload, q_n, n):
         return [np.nonzero(payload[k, :n])[0].astype(np.int64)
@@ -186,6 +200,7 @@ class Mask(ResultSpec):
     """The raw (n,) bool match mask per query (no id materialization)."""
 
     kind: ClassVar[str] = "mask"
+    sharded_payload: ClassVar[bool] = True
 
     def finalize(self, payload, q_n, n):
         return [np.asarray(payload[k, :n]) > 0 for k in range(q_n)]
@@ -240,6 +255,13 @@ class Count(ResultSpec):
                       *, tile_n, n_queries, backend):
         from repro_torch.kernels import reducers
         return reducers.visit_mask_counts(masks, qids, valid, n_queries)
+
+    def distributed_reduce(self, masks_by_shard, data_by_shard, mesh, *,
+                           tile_n, backend):
+        # shard counts summed on the first device (integer adds: exact)
+        parts = mesh.gather([mk.ne(0).sum(dim=-1, dtype=torch.int32)
+                             for mk in masks_by_shard])
+        return torch.stack(parts).sum(dim=0, dtype=torch.int32)
 
     def finalize(self, payload, q_n, n):
         return [int(c) for c in np.asarray(payload)[:q_n]]
@@ -301,6 +323,20 @@ class TopK(ResultSpec):
                                         tile_n)
         counts = reducers.visit_mask_counts(masks, qids, valid, n_queries)
         return vals, pos, counts
+
+    def distributed_reduce(self, masks_by_shard, data_by_shard, mesh, *,
+                           tile_n, backend):
+        # Each shard's top-k (the fill kernel, then the composite-key
+        # top-k), then one top-k over the (Q, D * k) candidates on the first
+        # device: positions offset by s * n_local, ties by ascending global
+        # position, lanes past a shard's match count cut.
+        from repro_torch.kernels import reducers
+        parts = [reducers.masked_topk(mk, x[self.dim], self.k, self.largest,
+                                      tile_n=tile_n, backend=backend)
+                 for mk, x in zip(masks_by_shard, data_by_shard)]
+        return reducers.merge_shard_topk(
+            [mesh.gather(p) for p in parts], data_by_shard[0].shape[-1],
+            self.k, self.largest)
 
     def finalize(self, payload, q_n, n):
         _, idx, counts = payload
@@ -394,6 +430,21 @@ class Agg(ResultSpec):
                                  visit_index, self.op, tile_n)
         counts = reducers.visit_mask_counts(masks, qids, valid, n_queries)
         return agg, counts
+
+    def distributed_reduce(self, masks_by_shard, data_by_shard, mesh, *,
+                           tile_n, backend):
+        # Shard-local aggregates (the agg kernel), merged on the first
+        # device in shard order: a fixed order, so repeated sums are
+        # bit-identical (the sum's order differs from one device's).
+        from repro_torch.kernels import reducers
+        parts = [reducers.masked_agg(mk, x[self.dim], self.op, tile_n=tile_n,
+                                     backend=backend)
+                 for mk, x in zip(masks_by_shard, data_by_shard)]
+        aggs = torch.stack(mesh.gather([a for a, _ in parts]))
+        counts = torch.stack(mesh.gather([c for _, c in parts]))
+        merged = {"sum": aggs.sum, "min": aggs.amin,
+                  "max": aggs.amax}[self.op](dim=0)
+        return merged, counts.sum(dim=0, dtype=torch.int32)
 
     def finalize(self, payload, q_n, n):
         agg, counts = payload

@@ -184,6 +184,35 @@ def masked_topk(masks, values, k: int, largest: bool, *, tile_n: int,
     return vals, idx.to(torch.int32), counts
 
 
+def merge_shard_topk(parts, n_local: int, k: int, largest: bool):
+    """Merge the shards' ``masked_topk`` payloads into one top-k.
+
+    ``parts`` lists each shard's ((Q, kk) values, (Q, kk) int32 local
+    positions, (Q,) counts), in shard order, on one device. Positions become
+    global (``s * n_local`` added); a lane past its shard's match count is a
+    fill lane and never outranks a real candidate; the k best of the
+    (Q, D * kk) candidates are selected on the composite key, so ties order
+    by ascending global position — the order one device's ``masked_topk``
+    gives. Returns ((Q, k') values, (Q, k') int32 positions, (Q,) int32
+    counts), k' = min(k, D * kk); lanes past a query's count are padding,
+    which the finalizer cuts.
+    """
+    d, kk = len(parts), parts[0][0].shape[-1]
+    dev = parts[0][0].device
+    vals = torch.cat([v for v, _, _ in parts], dim=1)            # (Q, D*kk)
+    shard = torch.arange(d, device=dev).repeat_interleave(kk)     # (D*kk,)
+    pos = torch.cat([i for _, i, _ in parts], dim=1).to(torch.int64) \
+        + shard * n_local
+    cnt = torch.stack([c for _, _, c in parts], dim=1)            # (Q, D)
+    live = torch.arange(kk, device=dev).repeat(d) < cnt[:, shard]
+    comp = torch.where(live, _composite(vals if largest else -vals, pos),
+                       torch.iinfo(torch.int64).min)
+    top = torch.topk(comp, min(int(k), d * kk), dim=-1).values
+    key, gpos = _split_composite(top)
+    total = cnt.sum(dim=1, dtype=torch.int32)
+    return (key if largest else -key), gpos.to(torch.int32), total
+
+
 def masked_agg(masks, values, op: str, *, tile_n: int, backend: str):
     """(Q, n_pad) masks + (n_pad,) values -> ((Q,) aggregates, (Q,) counts).
 

@@ -878,3 +878,151 @@ def test_pipelined_warm_set_is_complete_on_the_card(dev, method):
         assert ops.trace_log() == ()
         assert srv.warmup().keys == ()
         srv.close(PIPE_TIMEOUT)
+
+
+# -- horizontal partitioning: shards of one card -----------------------------------
+# ``core.distributed`` with a mesh that lists the card D times: the shards
+# run the hand kernels on their own blocks and merge on the first device.
+# Against the unmeshed engine on the same card: ids, counts, masks, top-k
+# (ties by id) and min/max exactly; sums within SUM_RTOL, and bit-identical
+# across repeated calls.
+
+MESH_SPECS = [Ids(), Count(), Mask(), TopK(k=10, dim=0),
+              TopK(k=10, dim=0, largest=False), TopK(k=7, dim=3),
+              Agg("sum", 3), Agg("min", 2), Agg("max", 0)]
+
+
+def _mesh_case(dev, n=60_000, n_q=40):
+    """GMRQB-free random data whose dim 0 holds three values (ties in every
+    shard, and across their boundaries), the mixed queries of ``_case``, an
+    unmeshed engine and its writes (400 rows, 900 base + 20 new deletes)."""
+    rng = np.random.default_rng(5)
+    cols = rng.random((6, n), dtype=np.float32)
+    cols[0] = rng.integers(0, 3, size=n)
+    qs = []
+    for k in range(n_q):
+        a, b = cols[:, rng.integers(n)], cols[:, rng.integers(n)]
+        lo, up = np.minimum(a, b) - 0.3, np.maximum(a, b) + 0.3
+        qs.append(RangeQuery.complete(lo, up) if k % 2 else
+                  RangeQuery.partial(6, {1: (float(lo[1]), float(up[1]))}))
+    qs.append(RangeQuery.partial(6, {}))
+    extra = rng.random((400, 6), dtype=np.float32)
+    dead = np.concatenate([rng.choice(n, 900, replace=False),
+                           n + np.arange(20)])
+    from repro_torch.core import Dataset
+    return Dataset(cols), qs, extra, dead
+
+
+def _assert_mesh_same(spec, got, want):
+    for g, w in zip(got, want):
+        if isinstance(w, np.ndarray):
+            np.testing.assert_array_equal(g, w)
+        elif spec.kind == "agg" and spec.op == "sum":
+            np.testing.assert_allclose(g, w, rtol=SUM_RTOL)
+        else:
+            assert g == w or (np.isnan(g) and np.isnan(w))
+
+
+@pytest.mark.parametrize("d", [1, 2, 8])
+def test_meshed_engine_matches_unmeshed_on_the_card(dev, d):
+    from repro_torch.core import DataMesh
+    ds, qs, extra, dead = _mesh_case(dev)
+    base = MDRQEngine(ds, structures=("scan",), tile_n=1024)
+    eng = MDRQEngine(ds, structures=("scan",), tile_n=1024,
+                     mesh=DataMesh([dev] * d))
+    assert eng.dist.n_local % 1024 == 0 and eng._columnar is None
+    for delta in (False, True):
+        if delta:
+            for e in (base, eng):
+                e.append(extra)
+                e.delete(dead)
+            n_local = eng.dist.n_local
+            assert np.unique(dead[dead < ds.n] // n_local).size == d
+        for spec in MESH_SPECS:
+            want = base.query_batch(qs, method="scan", spec=spec)
+            ops.reset_counters()
+            ops.reset_kernel_launches()
+            got = eng.query_batch(qs, method="scan", spec=spec)
+            assert ops.counters() == {"distributed_multi_reduce": 1,
+                                      "host_sync": 1}
+            launches = ops.kernel_launches()
+            # one scan per shard, plus the delta block's once
+            assert launches["multi_scan_tiles"] == d + int(delta)
+            if spec.kind == "topk":
+                assert launches["masked_fill_tiles"] == d + int(delta)
+            if spec.kind == "agg":
+                assert launches["masked_agg_tiles"] == d + int(delta)
+            _assert_mesh_same(spec, got, want)
+            if spec.kind == "agg":
+                again = eng.query_batch(qs, method="scan", spec=spec)
+                assert np.array_equal(np.array(got), np.array(again))
+        for q in qs[:4]:
+            np.testing.assert_array_equal(eng.query(q, "scan"),
+                                          base.query(q, "scan"))
+            assert eng.query(q, "scan", spec=Count()) == \
+                base.query(q, "scan", spec=Count())
+
+
+def test_meshed_topk_ties_straddle_shards_on_the_card(dev):
+    """Equal extremes planted across the shard boundaries of an eight-shard
+    mesh: the merged top-k lists them by ascending id, as one device does."""
+    from repro_torch.core import DataMesh, Dataset
+    rng = np.random.default_rng(9)
+    n = 8 * 8192
+    cols = np.round(rng.random((3, n)), 1).astype(np.float32)
+    for b in range(1, 8):
+        cols[1, b * 8192 - 3: b * 8192 + 3] = 2.0
+    ds = Dataset(cols)
+    qs = [RangeQuery.partial(3, {}), RangeQuery.partial(3, {0: (0.2, 0.2)})]
+    base = MDRQEngine(ds, structures=("scan",), tile_n=1024)
+    eng = MDRQEngine(ds, structures=("scan",), tile_n=1024,
+                     mesh=DataMesh([dev] * 8))
+    for spec in (TopK(k=12, dim=1), TopK(k=40, dim=1), TopK(k=9, dim=2),
+                 TopK(k=9, dim=2, largest=False)):
+        got = eng.query_batch(qs, method="scan", spec=spec)
+        _assert_mesh_same(spec, got, base.query_batch(qs, method="scan",
+                                                      spec=spec))
+    top = eng.query_batch(qs[:1], method="scan", spec=TopK(k=12, dim=1))[0]
+    np.testing.assert_array_equal(
+        top, np.array([8189, 8190, 8191, 8192, 8193, 8194,
+                       16381, 16382, 16383, 16384, 16385, 16386]))
+
+
+def test_meshed_engine_across_cards(dev):
+    """Shards on every card of the machine, two per card and interleaved
+    (shard s on card s % n): partials of the other cards cross to the first
+    with their streams' events; results equal the unmeshed engine on one
+    card, repeated sums bit-identical, and the caller's current card is
+    the same after each call."""
+    from repro_torch.core import DataMesh
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    ds, qs, extra, dead = _mesh_case(dev, n=120_000)
+    base = MDRQEngine(ds, structures=("scan",), tile_n=1024)
+    eng = MDRQEngine(ds, structures=("scan",), tile_n=1024,
+                     mesh=DataMesh([f"cuda:{s % n}" for s in range(2 * n)]))
+    assert {x.device.index for x in eng.dist.shards} == set(range(n))
+    current = torch.cuda.current_device()
+    for delta in (False, True):
+        if delta:
+            for e in (base, eng):
+                e.append(extra)
+                e.delete(dead)
+        for spec in MESH_SPECS:
+            want = base.query_batch(qs, method="scan", spec=spec)
+            ops.reset_counters()
+            got = eng.query_batch(qs, method="scan", spec=spec)
+            assert ops.counters() == {"distributed_multi_reduce": 1,
+                                      "host_sync": 1}
+            assert torch.cuda.current_device() == current
+            _assert_mesh_same(spec, got, want)
+            if spec.kind == "agg":
+                again = eng.query_batch(qs, method="scan", spec=spec)
+                assert np.array_equal(np.array(got), np.array(again))
+        for q in qs[:4]:
+            np.testing.assert_array_equal(eng.query(q, "scan"),
+                                          base.query(q, "scan"))
+            assert eng.query(q, "scan", spec=Count()) == \
+                base.query(q, "scan", spec=Count())
+            assert torch.cuda.current_device() == current
