@@ -103,7 +103,24 @@ non-zero without printing a result:
                B = 8 under the eight specs (one ``range_scan_rows`` launch and
                one host sync per query) and singles; the same checks, and
                ``range_scan_rows`` was launched.
- 12. delta   — the mutable plane. Through ``MDRQServer.append``/``delete``
+ 12. budget:frozen — the launch/host-sync budget of ``BUDGET_torch.json``
+               on the card. First the detector: under
+               ``torch.cuda.set_sync_debug_mode("warn")`` a planted pageable
+               upload and an ``.item()`` must be seen, a pinned non-blocking
+               upload and ``ops.device_get`` (whose transfer runs with the
+               mode lifted) must not. Then each certified path by name
+               (``scan``, ``scan_vertical``, ``kdtree``, ``rstar``,
+               ``vafile``) under Count, Agg sum and TopK d3 at B = 128 and
+               Ids at B = 32 (host-bound), each warmed: ``launch_batch``'s
+               host ms on an idle card and behind one launched batch of the
+               same path, beside the device ms of its work (CUDA events);
+               then ``launch_batch`` and ``finalize`` with the counters reset
+               and the detector on. Gates: the counted launches and syncs of
+               each stage equal the certificate's, no synchronizing CUDA
+               call outside ``ops.device_get`` in either stage (each one
+               printed with its call site), every result equal to the plain
+               engine's. Tracing stays off.
+ 13. delta   — the mutable plane. Through ``MDRQServer.append``/``delete``
                on the engine under test (a query submitted before and after
                each call must see exactly the writes before it) and directly
                on the plain engine: 100,000 fresh GMRQB rows appended (seed 1,
@@ -113,9 +130,12 @@ non-zero without printing a result:
                engine, 16 queries against numpy over the live rows, each
                bucket at its frozen budget; warm qps of Count, Agg sum and
                TopK d3 per path, frozen and under the delta; the tombstone
-               fold's time; ``compact()`` on both engines (id map, version 1,
-               seconds, peak device memory), then the B = 128 checks again.
- 13. lm      — the LM decode-serving path, after both engines are freed.
+               fold's time.
+ 14. budget:delta — the budget phase again, under the live delta.
+ 15. compact — ``compact()`` on both engines (id map, version 1, seconds,
+               peak device memory), then the delta phase's B = 128 checks
+               again.
+ 16. lm      — the LM decode-serving path, after both engines are freed.
                Qwen3-8B at full width and depth (36 layers, d_model 4096,
                random bf16 weights from a torch.Generator, seed 0):
                ``BatchServer(slots=4, max_len=1024)`` serves 8 requests
@@ -170,6 +190,8 @@ import re
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -216,6 +238,10 @@ DIST_DELTA_DEAD = 10_000  # 9,000 base ids and 1,000 of the new rows
 # float32 sums taken in different orders (kernel tree vs torch vs numpy
 # pairwise) over non-negative values: relative difference bound.
 AGG_SUM_RTOL = 1e-5
+# The budget phase: each certified path by name, frozen and under the delta.
+BUDGET_METHODS = ("scan", "scan_vertical", "kdtree", "rstar", "vafile")
+BUDGET_BATCH = 128
+BUDGET_IDS_BATCH = 32     # Ids is host-bound (the (Q, n) mask crosses)
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 rate outside
 # the tensor cores, for the bound column. The VA filter's 32-bit logical
 # operations are counted against the float32 rate too (the data sheet states
@@ -1203,7 +1229,8 @@ def pipeline_phase(eng, ds):
     stream adds no warm key; a latency budget far below one window's time
     sheds, and the raised budget serves again, correctly. The Ids server is
     not warmed: the warm batch matches every row, and at 10 M rows its Ids
-    would be ~80 MB per query.
+    would be ~80 MB per query. Returns {spec kind: pipelined / synchronous
+    wall qps}.
     """
     from repro_torch.core import Count, Ids
     from repro_torch.data import gmrqb
@@ -1212,6 +1239,7 @@ def pipeline_phase(eng, ds):
 
     stream = [q for _, q in gmrqb.mixed_workload(ds, PIPE_COUNT_QUERIES,
                                                  seed=SEED)]
+    ratios = {}
     for spec, qs in ((Count(), stream), (Ids(), stream[:PIPE_IDS_QUERIES])):
         label = f"pipeline {spec.kind}"
         want = []
@@ -1267,6 +1295,7 @@ def pipeline_phase(eng, ds):
                   f"{sync_wall / pipe_wall:.3f}", flush=True)
             print(f"    counters per stream (both servers): {counts}",
                   flush=True)
+            ratios[spec.kind] = sync_wall / pipe_wall
             if not warm:
                 continue
             rep = srv.last_warmup
@@ -1295,6 +1324,7 @@ def pipeline_phase(eng, ds):
                   f"queries served, equal", flush=True)
         finally:
             srv.close(PIPE_TIMEOUT_S)
+    return ratios
 
 
 def dist_specs() -> tuple:
@@ -1621,7 +1651,8 @@ def fold_time(eng, queries) -> float:
 
 
 def delta_phase(eng, eng_plain, ds, queries):
-    """Ingest through the server, serve under the delta, compact, serve."""
+    """Ingest through the server, serve under the delta -> (the server,
+    the deleted ids, the live row count) for ``compact_phase``."""
     from repro_torch.core import Count, RangeQuery
     from repro_torch.data import gmrqb
     from repro_torch.kernels import ops
@@ -1681,9 +1712,16 @@ def delta_phase(eng, eng_plain, ds, queries):
         print(f"  qps {key[0]:<13} {key[1]:<38} frozen {q_frozen:10.1f} "
               f"delta {delta_qps[key]:10.1f}", flush=True)
 
-    fold_ms = fold_time(eng, queries)
+    fold_time(eng, queries)
+    return srv, dead, live
 
-    # -- compaction: both versions on the card until the swap --
+
+def compact_phase(eng, eng_plain, queries, srv, dead, live):
+    """``compact()`` both engines (the engine under test through its
+    server), then serve and check again."""
+    from repro_torch.core import RangeQuery
+
+    everything = RangeQuery.partial(eng.dataset.m, {})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before_bytes = torch.cuda.memory_allocated()
@@ -1715,7 +1753,6 @@ def delta_phase(eng, eng_plain, ds, queries):
           "count after compaction != live rows")
     oracle = Oracle(eng, eng.dataset.cols, queries)
     delta_checks(eng, eng_plain, oracle, queries, False, "compacted")
-    return fold_ms, compact_s, peak
 
 
 def lm_requests(cfg, seed: int, n: int, prompt: tuple[int, int], max_new: int,
@@ -2493,6 +2530,233 @@ def kv_build_check() -> None:
           f"{', '.join(smem)}", flush=True)
 
 
+def budget_specs() -> tuple:
+    """(spec, B) of the budget phase: Count, Agg sum and TopK d3 at
+    ``BUDGET_BATCH``, Ids at ``BUDGET_IDS_BATCH``."""
+    from repro_torch.core import Agg, Count, Ids, TopK
+    return ((Count(), BUDGET_BATCH), (Agg("sum", 3), BUDGET_BATCH),
+            (TopK(k=10, dim=3), BUDGET_BATCH), (Ids(), BUDGET_IDS_BATCH))
+
+
+def certified_counts(entry: dict) -> dict:
+    """A ``BUDGET_torch.json`` entry as ``ops.counters()`` reports it."""
+    want = dict(entry["launches"])
+    if entry["host_syncs"]:
+        want["host_sync"] = entry["host_syncs"]
+    return want
+
+
+def port_site(stack, filename: str, lineno: int) -> str:
+    """The innermost frame of ``repro_torch`` in ``stack``, as
+    file:line function: code (else the warning's own location)."""
+    frames = [f for f in stack if "/repro_torch/" in f.filename]
+    if not frames:
+        return f"{filename}:{lineno}"
+    f = frames[-1]
+    name = f.filename.split("/src/")[-1]
+    return f"{name}:{f.lineno} {f.name}: {(f.line or '').strip()}"
+
+
+def spec_label(spec) -> str:
+    """Count, Ids, "agg sum d3", "topk d3"."""
+    if spec.kind == "agg":
+        return f"agg {spec.op} d{spec.dim}"
+    if spec.kind == "topk":
+        return f"topk d{spec.dim}"
+    return spec.kind
+
+
+def count_label(counts: dict) -> str:
+    """An ``ops.counters()`` dict as "op:n ... sync:n"."""
+    ops_ = " ".join(f"{k}:{v}" for k, v in sorted(counts.items())
+                    if k != "host_sync")
+    return f"{ops_} sync:{counts.get('host_sync', 0)}"
+
+
+class SyncWatch:
+    """Synchronizing CUDA calls outside ``ops.device_get``.
+
+    Under ``torch.cuda.set_sync_debug_mode("warn")`` PyTorch warns at each
+    call that makes the host wait for the card (``.item()``, ``nonzero``,
+    a device->host copy, a host->device copy from pageable memory); each
+    warning is recorded with the innermost frame of the port that made it.
+    The counted ``ops.device_get`` runs with the mode lifted — its transfer
+    is the certified sync — and returns what it returns. Tracing stays off.
+    """
+
+    def __init__(self):
+        self.sites: list[str] = []
+
+    @contextlib.contextmanager
+    def watch(self):
+        from repro_torch.kernels import ops
+        counted = ops.device_get
+
+        def device_get(x):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return counted(x)
+            finally:
+                torch.cuda.set_sync_debug_mode("warn")
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            shown = warnings.showwarning
+
+            def record(message, category, filename, lineno, file=None,
+                       line=None):
+                if "called a synchronizing CUDA operation" in str(message):
+                    self.sites.append(port_site(traceback.extract_stack(),
+                                                filename, lineno))
+                else:
+                    shown(message, category, filename, lineno, file, line)
+            warnings.showwarning = record
+            ops.device_get = device_get
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield self
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                ops.device_get = counted
+
+
+def sync_watch_check(dev) -> bool:
+    """Whether ``SyncWatch`` sees a planted pageable upload and an
+    ``.item()``, and sees neither a pinned non-blocking upload nor
+    ``ops.device_get``'s own transfer."""
+    from repro_torch.kernels import ops
+    host = np.arange(1 << 20, dtype=np.float32)
+    x = torch.ones(8, device=dev)
+    planted = (("pageable upload", 1,
+                lambda: torch.as_tensor(host, device=dev)),
+               (".item()", 1, lambda: x.sum().item()),
+               ("pinned non-blocking upload", 0,
+                lambda: torch.from_numpy(host).pin_memory().to(
+                    dev, non_blocking=True)),
+               ("ops.device_get", 0, lambda: ops.device_get(x)))
+    seen = {}
+    for name, _, fn in planted:
+        w = SyncWatch()
+        with w.watch():
+            fn()
+        torch.cuda.synchronize()
+        seen[name] = w.sites
+    ok = all((len(seen[name]) > 0) == bool(want) for name, want, _ in planted)
+    print("  sync-debug detector: " + "; ".join(
+        f"{name} {len(seen[name])} ({seen[name][0] if seen[name] else '-'})"
+        for name, _, _ in planted) + f" -> {'ok' if ok else 'BLIND'}",
+        flush=True)
+    return ok
+
+
+def budget_case(eng, eng_plain, qs, method, spec, context, cert) -> dict:
+    """One (path, context, spec): warm; ``launch_batch``'s host ms on an
+    idle card (with the device ms of the work it launched, CUDA events)
+    and then behind that batch (as the pipelined server launches window
+    k+1 while window k runs); then ``launch_batch`` and ``finalize`` under
+    ``SyncWatch`` with the counters reset -> the row the phase prints and
+    checks."""
+    from repro_torch.kernels import ops
+    entry = cert["paths"][method][context]
+    eng.launch_batch(qs, method=method, spec=spec).finalize()   # warm
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    first = eng.launch_batch(qs, method=method, spec=spec)
+    idle_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    t0 = time.perf_counter()
+    pb = eng.launch_batch(qs, method=method, spec=spec)
+    behind_ms = (time.perf_counter() - t0) * 1e3
+    first.finalize()
+    pb.finalize()
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(end)
+
+    stage, fin = SyncWatch(), SyncWatch()
+    ops.reset_counters()
+    with stage.watch():
+        pb = eng.launch_batch(qs, method=method, spec=spec)
+    stage_counts = ops.counters()
+    with fin.watch():
+        got = pb.finalize()
+    total_counts = ops.counters()
+    plain = eng_plain.query_batch(qs, method=method, spec=spec)
+    return {"method": method, "context": context, "spec": spec_label(spec),
+            "batch": len(qs),
+            "equal_plain": len(got) == len(plain) and all(
+                same_result(spec, x, y) for x, y in zip(got, plain)),
+            "stage": stage_counts,
+            "stage_cert": certified_counts(entry["device_stage"]),
+            "total": total_counts,
+            "total_cert": certified_counts(entry["total"]),
+            "uncounted_stage": stage.sites, "uncounted_finalize": fin.sites,
+            "launch_host_ms_idle": idle_ms, "launch_host_ms_behind": behind_ms,
+            "device_ms": device_ms}
+
+
+def budget_faults(r: dict) -> list[str]:
+    """What fails a budget row: counts off the certificate, an uncounted
+    sync, a result off the plain engine's."""
+    out = []
+    if r["stage"] != r["stage_cert"]:
+        out.append(f"device stage {r['stage']} != certificate "
+                   f"{r['stage_cert']}")
+    if r["total"] != r["total_cert"]:
+        out.append(f"total {r['total']} != certificate {r['total_cert']}")
+    for where in ("stage", "finalize"):
+        if r[f"uncounted_{where}"]:
+            out.append(f"{len(r[f'uncounted_{where}'])} uncounted sync(s) in "
+                       f"the {where}, first at {r[f'uncounted_{where}'][0]}")
+    if not r["equal_plain"]:
+        out.append("results != the plain engine's")
+    return out
+
+
+def budget_phase(eng, eng_plain, queries, context, strict=True) -> list:
+    """Every certified path by name at B = 128 of the workload (Ids at 32)
+    under Count, Agg sum, TopK d3 and Ids, in ``context`` ("frozen" or
+    "delta"): counted launches and syncs per stage beside
+    ``BUDGET_torch.json``'s, uncounted syncs per stage with the first call
+    site, ``launch_batch``'s host ms beside the device ms; every result
+    equal to the plain engine's. With ``strict``, a blind detector fails
+    the run at once, and any fault once every row is printed."""
+    cert = json.loads((ROOT / "BUDGET_torch.json").read_text())
+    detector_ok = sync_watch_check(eng.device)
+    check(detector_ok or not strict, "budget: the sync-debug detector missed "
+          "a planted sync (or saw one that is not)")
+    rows, faults = [], []
+    for method in BUDGET_METHODS:
+        for spec, b in budget_specs():
+            r = budget_case(eng, eng_plain, queries[:b], method, spec,
+                            context, cert)
+            rows.append(r)
+            bad = budget_faults(r)
+            faults += [f"{context} {method} {r['spec']}: {f}" for f in bad]
+            cert_ = {k: "=" if r[k] == r[f"{k}_cert"]
+                     else "!= " + count_label(r[f"{k}_cert"])
+                     for k in ("stage", "total")}
+            print(f"  {context:<6} {method:<13} {r['spec']:<11} "
+                  f"B={r['batch']:<3} stage {count_label(r['stage'])} "
+                  f"[cert {cert_['stage']}]; total "
+                  f"{count_label(r['total'])} [cert {cert_['total']}]; "
+                  f"uncounted syncs {len(r['uncounted_stage'])} stage, "
+                  f"{len(r['uncounted_finalize'])} finalize; launch_batch "
+                  f"host ms {r['launch_host_ms_idle']:.3f} idle, "
+                  f"{r['launch_host_ms_behind']:.3f} behind a batch; "
+                  f"device ms {r['device_ms']:.3f}"
+                  + ("" if not bad else " FAULT"), flush=True)
+            for where in ("stage", "finalize"):
+                for site in sorted(set(r[f"uncounted_{where}"])):
+                    print(f"      uncounted in {where} "
+                          f"(x{r[f'uncounted_{where}'].count(site)}): "
+                          f"{site}", flush=True)
+    check(not (strict and faults), "budget: " + "; ".join(faults[:8]))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2609,8 +2873,17 @@ def main() -> int:
         rowscan_phase(eng, eng_plain, oracle, queries)
         read_launches(rowscan_kernels, "row-scan path")
 
+    with phase("budget:frozen"):
+        budget_phase(eng, eng_plain, queries, "frozen")
+
     with phase("delta"):
-        delta_phase(eng, eng_plain, ds, queries)
+        ingest = delta_phase(eng, eng_plain, ds, queries)
+
+    with phase("budget:delta"):
+        budget_phase(eng, eng_plain, queries, "delta")
+
+    with phase("compact"):
+        compact_phase(eng, eng_plain, queries, *ingest)
 
     # The LM phase needs the card's memory: free both engines first.
     del eng, eng_plain, oracle

@@ -201,10 +201,9 @@ def launch_visits_batch(data_dev: torch.Tensor, query_ids: np.ndarray,
                                          data_dev.dtype, dev,
                                          q_pad=_next_pow2(len(batch)))
     payload = ops.multi_visit_reduce(
-        data_dev, torch.as_tensor(qids_p, device=dev),
-        torch.as_tensor(bids_p, device=dev),
-        torch.as_tensor((bids_p >= 0).astype(np.int32), device=dev),
-        torch.as_tensor(visit_index, device=dev), lo_d, up_d, dcm, tomb,
+        data_dev, ops.upload(qids_p, dev), ops.upload(bids_p, dev),
+        ops.upload((bids_p >= 0).astype(np.int32), dev),
+        ops.upload(visit_index, dev), lo_d, up_d, dcm, tomb,
         spec=spec, tile_n=tile_n, n_queries=q_bucket,
         m=dview.m if dcm is not None else None, backend=backend)
     vctx = T.VisitHostCtx(
@@ -310,7 +309,7 @@ class BlockedIndex:
                                            self.data_dev.dtype,
                                            self.data_dev.device)
         masks = ops.range_scan_visit(
-            self.data_dev, torch.as_tensor(ids, device=self.data_dev.device),
+            self.data_dev, ops.upload(ids, self.data_dev.device),
             qlo, qhi, tile_n=self.tile_n, backend=self.backend)
         return survivors, masks[: survivors.size]  # padding visits drop
 
@@ -351,8 +350,8 @@ class BlockedIndex:
         qlo, qhi = batch.bounds_columnar(self.m, q_pad)
         dev = self.data_dev.device
         leaf_mask = ops.device_get(prune_hierarchy_batch(
-            self.levels_lo, self.levels_hi, torch.as_tensor(qlo, device=dev),
-            torch.as_tensor(qhi, device=dev), fanout=self.fanout,
+            self.levels_lo, self.levels_hi, ops.upload(qlo, dev),
+            ops.upload(qhi, dev), fanout=self.fanout,
         ))[:q_n]  # (Q, n_leaves); padding queries are match-all -> dropped
         qids, bids = np.nonzero(leaf_mask)
         self.last_visited_blocks = int(qids.size)

@@ -107,6 +107,9 @@ class DeltaView:
             if self.delta_tomb.any():
                 cols[:, self.delta_tomb] = np.inf
             padded, _, _ = ops.prepare_columnar(cols, tile_n=tile_n)
+            # A blocking copy, once per version (not ops.upload): later
+            # batches read the cached block from any stream, so it must be
+            # complete here. The tombstone cache below is the same.
             cm = torch.as_tensor(padded, device=device)
             self._cm_cache[key] = cm
         return cm
@@ -344,8 +347,11 @@ class Compactor:
             if view.d:
                 id_map[view.n_base:][keep_delta] = (
                     n_keep_base + np.arange(int(keep_delta.sum())))
-            self._new_state = eng._build_state(T.Dataset(new_cols),
-                                               version=state.version + 1)
+            # Compactor is single-owner: commit() touches _new_state under
+            # the engine's ingest lock only incidentally (that lock guards
+            # the *engine*), so this lock-free write does not race anything.
+            self._new_state = eng._build_state(  # mdrqlint: disable=lock-discipline
+                T.Dataset(new_cols), version=state.version + 1)
             self._old_state = state
             self._view = view
             self._id_map = id_map

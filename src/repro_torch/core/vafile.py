@@ -126,7 +126,7 @@ class VAFile:
         qlo_f, qhi_f = ops.query_bounds_device(q, self.data_dev.shape[0],
                                                self.data_dev.dtype, self._device)
         masks = ops.range_scan_visit(self.data_dev,
-                                     torch.as_tensor(ids, device=self._device),
+                                     ops.upload(ids, self._device),
                                      qlo_f, qhi_f, tile_n=self.tile_n,
                                      backend=self.backend)
         return masks[: survivors.size]  # padding visits (id -1) drop
@@ -140,8 +140,8 @@ class VAFile:
         qlo[: self.m, 0] = cell_lo
         qhi[: self.m, 0] = cell_hi
         cand = ops.device_get(ops.va_filter(
-            self.packed_dev, torch.as_tensor(qlo, device=self._device),
-            torch.as_tensor(qhi, device=self._device), self.m,
+            self.packed_dev, ops.upload(qlo, self._device),
+            ops.upload(qhi, self._device), self.m,
             backend=self.backend,
         )) > 0
         self.last_candidate_frac = float(cand[: self.n].mean())
@@ -158,8 +158,8 @@ class VAFile:
         q_pad = _next_pow2(q_n)  # pow2 query bucket bounds launch shapes
         cell_lo, cell_hi = self.query_cells_batch(batch, q_pad)
         block_any = ops.multi_va_filter(
-            self.packed_dev, torch.as_tensor(cell_lo, device=self._device),
-            torch.as_tensor(cell_hi, device=self._device), self.m,
+            self.packed_dev, ops.upload(cell_lo, self._device),
+            ops.upload(cell_hi, self._device), self.m,
             block_n=self.tile_n, backend=self.backend,
         )
         surv = ops.device_get(block_any)[:q_n]  # padding queries drop
@@ -221,7 +221,8 @@ def build_vafile(
     codes = np.zeros((m, n), np.uint8)
     for d in range(m):
         codes[d] = np.searchsorted(boundaries[d], cols[d], side="right").astype(np.uint8)
-    packed = pack_codes(codes)
+    # pack_codes is the build's numpy bit packing: host work, no launch.
+    packed = pack_codes(codes)  # mdrqlint: disable=uncounted-launch
     # Pad objects: word 0 of padding must NOT alias cell 0 matches. The exact
     # data pads with +inf (never matches); approximations may produce false
     # candidates in the padded tail, which the exact refine rejects.

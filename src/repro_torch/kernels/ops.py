@@ -214,6 +214,27 @@ def prepare_columnar(
     return np.ascontiguousarray(x, dtype=np.float32), m, n
 
 
+def upload(a, device) -> torch.Tensor:
+    """Host array -> tensor on ``device``: the one per-batch host->device
+    copy of the serving paths.
+
+    On a CUDA target the bytes are staged in pinned host memory
+    (``pin_memory()``) and copied with ``non_blocking=True``: the copy
+    queues on the current stream and the call returns at once, where a
+    pageable copy would wait for everything already on the stream — an
+    uncounted host sync. PyTorch's caching host allocator keeps the pinned
+    block until the copy has run. On a CPU target it is ``torch.as_tensor``.
+    The choice follows ``device``, never whether a card is present.
+    """
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return torch.as_tensor(a, device=dev)
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:   # torch.from_numpy warns on read-only arrays
+        a = a.copy()
+    return torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
+
+
 def query_bounds_device(q, m_pad: int, dtype: torch.dtype,
                         device) -> tuple[torch.Tensor, torch.Tensor]:
     """(m_pad, 1) finite device bounds for a query (pad rows = match-all).
@@ -224,8 +245,8 @@ def query_bounds_device(q, m_pad: int, dtype: torch.dtype,
     from repro_torch.core import types as T
     lo, up = T.padded_query_bounds(q, m_pad)
     lo, up = T.finite_query_bounds(lo, up, dtype=dtype)
-    return (torch.as_tensor(lo.reshape(-1, 1), device=device).to(dtype),
-            torch.as_tensor(up.reshape(-1, 1), device=device).to(dtype))
+    return (upload(lo.reshape(-1, 1), device).to(dtype),
+            upload(up.reshape(-1, 1), device).to(dtype))
 
 
 def batch_bounds_device(batch, m_pad: int, dtype: torch.dtype, device,
@@ -241,8 +262,7 @@ def batch_bounds_device(batch, m_pad: int, dtype: torch.dtype, device,
     if not isinstance(batch, T.QueryBatch):
         batch = T.QueryBatch.from_queries(list(batch))
     lo, up = batch.bounds_columnar(m_pad, q_pad, dtype=dtype)
-    return (torch.as_tensor(lo, device=device).to(dtype),
-            torch.as_tensor(up, device=device).to(dtype))
+    return (upload(lo, device).to(dtype), upload(up, device).to(dtype))
 
 
 def dim_ids_device(dim_ids: np.ndarray, m_pad: int, device) -> torch.Tensor:
@@ -251,7 +271,7 @@ def dim_ids_device(dim_ids: np.ndarray, m_pad: int, device) -> torch.Tensor:
     ids = np.asarray(dim_ids, np.int32)
     if ids.size and (ids.min() < 0 or ids.max() >= m_pad):
         raise ValueError(f"dim ids out of range [0, {m_pad})")
-    return torch.as_tensor(ids, device=device)
+    return upload(ids, device)
 
 
 # -- the mask kernels, per backend --------------------------------------------

@@ -33,8 +33,16 @@ edge cases, and the reduced Qwen3 decode on the card against the plain
 backend and the CPU. The pipelined MDRQ server on its launch and copy
 streams: 20 windows back to back through backlog 4, and an append between
 windows, equal to the synchronous server in order; its warm set complete
-after ``warmup()``.
+after ``warmup()``. The budget under ``torch.cuda.set_sync_debug_mode
+("error")``: ``ops.upload`` never waits for the stream (a pageable copy
+raises), and every certified path's ``launch_batch`` and ``finalize``,
+frozen and under a delta, synchronize only in ``ops.device_get``, at the
+counts ``BUDGET_torch.json`` certifies.
 """
+import contextlib
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1026,3 +1034,87 @@ def test_meshed_engine_across_cards(dev):
             assert eng.query(q, "scan", spec=Count()) == \
                 base.query(q, "scan", spec=Count())
             assert torch.cuda.current_device() == current
+
+
+# -- the budget: no uncounted host sync on a certified path ------------------
+
+@contextlib.contextmanager
+def sync_errors():
+    """``torch.cuda.set_sync_debug_mode("error")``: every synchronizing
+    CUDA call raises, except the counted ``ops.device_get``, whose transfer
+    runs with the mode lifted (it returns what it returns)."""
+    counted = ops.device_get
+
+    def device_get(x):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return counted(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+    ops.device_get = device_get
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        ops.device_get = counted
+
+
+def test_upload_does_not_wait_for_the_stream(dev):
+    """``ops.upload`` (pinned, non-blocking) passes the error mode where a
+    pageable ``torch.as_tensor`` copy raises; the bytes arrive intact,
+    read-only and non-contiguous inputs included."""
+    host = np.random.default_rng(0).random((24, 129), dtype=np.float32)
+    ro = np.arange(1000, dtype=np.int32)
+    ro.setflags(write=False)
+    with sync_errors():
+        outs = [(a, ops.upload(a, dev)) for a in
+                (host, host[:, ::2], ro, (host > 0.5).astype(np.int32))]
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            torch.as_tensor(host, device=dev)
+    for a, t in outs:
+        assert t.device.type == "cuda"
+        np.testing.assert_array_equal(t.cpu().numpy(), a)
+
+
+@pytest.mark.parametrize("delta", [False, True], ids=["frozen", "delta"])
+@pytest.mark.parametrize("method", ["scan", "scan_vertical", "kdtree",
+                                    "rstar", "vafile"])
+def test_launch_batch_syncs_only_where_counted(dev, method, delta):
+    """Every certified path's ``launch_batch`` and ``finalize`` under the
+    error mode (only ``ops.device_get`` may wait), frozen and under a live
+    delta: the certified counts per stage, the plain engine's results."""
+    cert = json.loads((Path(__file__).resolve().parents[1]
+                       / "BUDGET_torch.json").read_text())
+    entry = cert["paths"][method]["delta" if delta else "frozen"]
+    ds = gmrqb.build(60_000, seed=11)
+    qs = [q for _, q in gmrqb.mixed_workload(ds, 40, seed=12)]
+    eng = MDRQEngine(ds, tile_n=1024)
+    plain = MDRQEngine(ds, tile_n=1024, backend="torch")
+    if delta:
+        dead = np.concatenate([np.arange(0, 60_000, 151),
+                               60_000 + np.arange(0, 600, 7)])
+        for e in (eng, plain):
+            e.append(gmrqb.build(600, seed=13).rows())
+            e.delete(dead)
+    stage_want = dict(entry["device_stage"]["launches"])
+    if entry["device_stage"]["host_syncs"]:
+        stage_want["host_sync"] = entry["device_stage"]["host_syncs"]
+    for spec in (Count(), Ids(), TopK(k=5, dim=3), Agg("sum", 2)):
+        want = plain.query_batch(qs, method=method, spec=spec)
+        eng.query_batch(qs, method=method, spec=spec)      # warm
+        torch.cuda.synchronize()
+        ops.reset_counters()
+        with sync_errors():
+            pb = eng.launch_batch(qs, method=method, spec=spec)
+            stage = ops.counters()
+            got = pb.finalize()
+        assert stage == stage_want, (method, spec)
+        assert ops.counter("host_sync") == entry["total"]["host_syncs"]
+        for g, w in zip(got, want):
+            if isinstance(w, np.ndarray):
+                np.testing.assert_array_equal(g, w)
+            elif spec.kind == "agg":
+                assert g == pytest.approx(w, rel=SUM_RTOL)
+            else:
+                assert g == w
