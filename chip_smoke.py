@@ -119,7 +119,17 @@ non-zero without printing a result:
                each stage equal the certificate's, no synchronizing CUDA
                call outside ``ops.device_get`` in either stage (each one
                printed with its call site), every result equal to the plain
-               engine's. Tracing stays off.
+               engine's. Tracing stays off. Readings beside the gates, for
+               the host waits the detector cannot see: what PyTorch's
+               caching allocators made during the call behind a batch (new
+               pinned host blocks, new device segments, allocation retries)
+               and the interpreter's gc ms; on ``scan`` and
+               ``scan_vertical`` (not Ids) ``BEHIND_CALLS`` more calls, each
+               launched while every batch before it is still in flight,
+               twice (first and second meeting of each queue depth): each
+               call's host ms, first and median, the same allocator and gc
+               readings, and the device events of a batch
+               (``torch.profiler`` over 3 batches).
  13. delta   — the mutable plane. Through ``MDRQServer.append``/``delete``
                on the engine under test (a query submitted before and after
                each call must see exactly the writes before it) and directly
@@ -135,7 +145,19 @@ non-zero without printing a result:
  15. compact — ``compact()`` on both engines (id map, version 1, seconds,
                peak device memory), then the delta phase's B = 128 checks
                again.
- 16. lm      — the LM decode-serving path, after both engines are freed.
+ 16. examples — ``ColumnarScan.mask_batch``, ``mask_batch_partial`` and
+               ``count_batch`` (also ``partial=True``) at B = 128 of the
+               workload on the compacted engine: equal to the plain
+               engine's, 16 queries equal to ``numpy_scan_ids``, one
+               counted op and one host sync per call, no synchronizing CUDA
+               call outside ``ops.device_get``. Then both engines are freed
+               and each port example (``examples/quickstart_torch.py``,
+               ``gmrqb_demo_torch.py``, ``batched_queries_torch.py``) runs
+               its ``main`` on cuda:0 at its default size: its own asserts
+               hold (every path, batch form and spec agree), and it launched
+               a scan, a visit and a VA-filter kernel; its wall seconds and
+               kernel launches are printed.
+ 17. lm      — the LM decode-serving path, after both engines are freed.
                Qwen3-8B at full width and depth (36 layers, d_model 4096,
                random bf16 weights from a torch.Generator, seed 0):
                ``BatchServer(slots=4, max_len=1024)`` serves 8 requests
@@ -242,6 +264,17 @@ AGG_SUM_RTOL = 1e-5
 BUDGET_METHODS = ("scan", "scan_vertical", "kdtree", "rstar", "vafile")
 BUDGET_BATCH = 128
 BUDGET_IDS_BATCH = 32     # Ids is host-bound (the (Q, n) mask crosses)
+# launch_batch calls timed behind in-flight batches on the scan paths (gap
+# 1): each call while every batch before it is still on the card.
+BEHIND_METHODS = ("scan", "scan_vertical")
+BEHIND_CALLS = 4
+# The port's MDRQ examples, each run at its default size, and the kernels
+# each must launch (the scans, the visits, the VA filter).
+EXAMPLES = ("quickstart_torch", "gmrqb_demo_torch", "batched_queries_torch")
+EXAMPLE_KERNELS = (("range_scan_tiles", "multi_scan_tiles"),
+                   ("range_scan_visit", "multi_scan_visit"),
+                   ("va_filter_packed", "multi_va_filter_packed"))
+COLUMNAR_BATCH = 128
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 rate outside
 # the tensor cores, for the bound column. The VA filter's 32-bit logical
 # operations are counted against the float32 rate too (the data sheet states
@@ -2649,13 +2682,98 @@ def sync_watch_check(dev) -> bool:
     return ok
 
 
+class GcClock:
+    """Milliseconds the interpreter spent collecting garbage while
+    installed (``gc.callbacks``)."""
+
+    def __init__(self):
+        self.ms = 0.0
+        self._t0 = None
+
+    def _note(self, phase_, info) -> None:
+        if phase_ == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self._t0 = None
+
+    def __enter__(self) -> "GcClock":
+        gc.callbacks.append(self._note)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self._note)
+
+
+def alloc_snapshot() -> tuple[int, int, int]:
+    """(pinned host blocks, device segments, device allocation retries)
+    that PyTorch's caching allocators have made so far: a new pinned block
+    is a ``cudaHostAlloc``, a new segment a ``cudaMalloc``, a retry a
+    ``cudaFree`` of the cache (-1 where this torch does not report it)."""
+    host_stats = getattr(torch.cuda, "host_memory_stats", None)
+    host = host_stats() if host_stats is not None else {}
+    dev = torch.cuda.memory_stats()
+    return (int(host.get("num_host_alloc", -1)),
+            int(dev.get("segment.all.allocated", -1)),
+            int(dev.get("num_alloc_retries", -1)))
+
+
+def timed_launch(eng, qs, method, spec) -> tuple:
+    """One ``launch_batch`` -> (its pending batch, host ms, what the
+    allocators made during it as ``alloc_snapshot`` differences, gc ms)."""
+    a0 = alloc_snapshot()
+    with GcClock() as gcc:
+        t0 = time.perf_counter()
+        pb = eng.launch_batch(qs, method=method, spec=spec)
+        ms = (time.perf_counter() - t0) * 1e3
+    made = tuple(b - a for a, b in zip(a0, alloc_snapshot()))
+    return pb, ms, made, gcc.ms
+
+
+def behind_readings(eng, qs, method, spec, calls=BEHIND_CALLS) -> dict:
+    """``launch_batch``'s host ms deeper behind in-flight batches: one
+    batch launched, then ``calls`` more, each while every batch before it
+    is still in flight (2 .. calls + 1 deep), then all finalized; twice.
+    The first pass meets each depth for the first time, the second after
+    it. Per pass: each call's host ms and what the allocators made during
+    it, the first and the median ms, and the pinned blocks, device
+    segments, retries and gc ms of the whole pass."""
+    out = {}
+    for label in ("first pass", "second pass"):
+        torch.cuda.synchronize()
+        pending = [eng.launch_batch(qs, method=method, spec=spec)]
+        ms, per_call, gc_ms = [], [], 0.0
+        for _ in range(calls):
+            pb, t, m, g = timed_launch(eng, qs, method, spec)
+            pending.append(pb)
+            ms.append(t)
+            per_call.append(m)
+            gc_ms += g
+        for pb in pending:
+            pb.finalize()
+        made = [sum(col) for col in zip(*per_call)]
+        out[label] = {"ms": ms, "made": per_call, "first_ms": ms[0],
+                      "median_ms": float(np.median(ms)),
+                      "pinned_blocks": made[0], "segments": made[1],
+                      "retries": made[2], "gc_ms": gc_ms}
+    return out
+
+
+def made_label(made, gc_ms: float) -> str:
+    """Allocator and gc activity during a timed call, for the log."""
+    return (f"pinned +{made[0]}, segments +{made[1]}, retries +{made[2]}, "
+            f"gc {gc_ms:.1f} ms")
+
+
 def budget_case(eng, eng_plain, qs, method, spec, context, cert) -> dict:
     """One (path, context, spec): warm; ``launch_batch``'s host ms on an
     idle card (with the device ms of the work it launched, CUDA events)
     and then behind that batch (as the pipelined server launches window
-    k+1 while window k runs); then ``launch_batch`` and ``finalize`` under
-    ``SyncWatch`` with the counters reset -> the row the phase prints and
-    checks."""
+    k+1 while window k runs), with what the allocators and gc did during
+    it; on ``BEHIND_METHODS`` (not Ids) ``behind_readings`` and the device
+    events per batch (``device_kernels``); then ``launch_batch`` and
+    ``finalize`` under ``SyncWatch`` with the counters reset -> the row
+    the phase prints and checks."""
     from repro_torch.kernels import ops
     entry = cert["paths"][method][context]
     eng.launch_batch(qs, method=method, spec=spec).finalize()   # warm
@@ -2667,13 +2785,17 @@ def budget_case(eng, eng_plain, qs, method, spec, context, cert) -> dict:
     first = eng.launch_batch(qs, method=method, spec=spec)
     idle_ms = (time.perf_counter() - t0) * 1e3
     end.record()
-    t0 = time.perf_counter()
-    pb = eng.launch_batch(qs, method=method, spec=spec)
-    behind_ms = (time.perf_counter() - t0) * 1e3
+    pb, behind_ms, behind_made, behind_gc = timed_launch(eng, qs, method,
+                                                         spec)
     first.finalize()
     pb.finalize()
     torch.cuda.synchronize()
     device_ms = start.elapsed_time(end)
+    deeper = kernels = None
+    if method in BEHIND_METHODS and spec.kind != "ids":
+        deeper = behind_readings(eng, qs, method, spec)
+        kernels = device_kernels(lambda: eng.query_batch(
+            qs, method=method, spec=spec), reps=3)[1]
 
     stage, fin = SyncWatch(), SyncWatch()
     ops.reset_counters()
@@ -2694,6 +2816,8 @@ def budget_case(eng, eng_plain, qs, method, spec, context, cert) -> dict:
             "total_cert": certified_counts(entry["total"]),
             "uncounted_stage": stage.sites, "uncounted_finalize": fin.sites,
             "launch_host_ms_idle": idle_ms, "launch_host_ms_behind": behind_ms,
+            "behind_made": behind_made, "behind_gc_ms": behind_gc,
+            "deeper": deeper, "kernels_per_batch": kernels,
             "device_ms": device_ms}
 
 
@@ -2748,6 +2872,21 @@ def budget_phase(eng, eng_plain, queries, context, strict=True) -> list:
                   f"{r['launch_host_ms_behind']:.3f} behind a batch; "
                   f"device ms {r['device_ms']:.3f}"
                   + ("" if not bad else " FAULT"), flush=True)
+            print(f"      behind a batch: "
+                  f"{made_label(r['behind_made'], r['behind_gc_ms'])}",
+                  flush=True)
+            if r["kernels_per_batch"] is not None:
+                print(f"      device events per batch (profiler, 3 "
+                      f"batches): {r['kernels_per_batch']:.1f}", flush=True)
+            for label, d in (r["deeper"] or {}).items():
+                print(f"      deeper, {label}: host ms "
+                      + " ".join(f"{t:.3f}" + ("[+{}/+{}/+{}]".format(*m)
+                                               if any(m) else "")
+                                 for t, m in zip(d["ms"], d["made"]))
+                      + f" (first {d['first_ms']:.3f}, median "
+                      f"{d['median_ms']:.3f}); "
+                      + made_label((d["pinned_blocks"], d["segments"],
+                                    d["retries"]), d["gc_ms"]), flush=True)
             for where in ("stage", "finalize"):
                 for site in sorted(set(r[f"uncounted_{where}"])):
                     print(f"      uncounted in {where} "
@@ -2755,6 +2894,85 @@ def budget_phase(eng, eng_plain, queries, context, strict=True) -> list:
                           f"{site}", flush=True)
     check(not (strict and faults), "budget: " + "; ".join(faults[:8]))
     return rows
+
+
+def columnar_batch_checks(eng, eng_plain, queries) -> None:
+    """``ColumnarScan.mask_batch``, ``mask_batch_partial`` and
+    ``count_batch`` at B = ``COLUMNAR_BATCH`` on the engine's (compacted)
+    columnar scan: equal to the plain engine's, ``ORACLE_SAMPLE`` queries
+    equal to ``numpy_scan_ids``; each call one counted op and one host sync,
+    and no synchronizing CUDA call outside ``ops.device_get``."""
+    from repro_torch.core import QueryBatch
+    from repro_torch.core.scan import numpy_scan_ids
+    from repro_torch.kernels import ops
+    batch = QueryBatch.from_queries(queries[:COLUMNAR_BATCH])
+    cols = eng.dataset.cols
+    calls = (("mask_batch", {}), ("mask_batch_partial", {}),
+             ("count_batch", {}), ("count_batch", {"partial": True}))
+    for name, kw in calls:
+        label = name + (" partial" if kw else "")
+        fn = getattr(eng.columnar, name)
+        fn(batch, **kw)                                  # warm
+        watch = SyncWatch()
+        ops.reset_counters()
+        t0 = time.perf_counter()
+        with watch.watch():
+            got = fn(batch, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.counters()
+        want = getattr(eng_plain.columnar, name)(batch, **kw)
+        if name == "count_batch":
+            equal = got == want
+            sample = all(got[i] == numpy_scan_ids(cols, batch[i]).size
+                         for i in range(ORACLE_SAMPLE))
+        else:
+            equal = got.shape == want.shape and np.array_equal(got, want)
+            sample = all(np.array_equal(np.nonzero(got[i])[0],
+                                        numpy_scan_ids(cols, batch[i]))
+                         for i in range(ORACLE_SAMPLE))
+        print(f"  columnar {label:<19} B={len(batch)}: {ms:.3f} host ms; "
+              f"counts {count_label(counts)}; uncounted syncs "
+              f"{len(watch.sites)}; equal plain {equal}, numpy "
+              f"{ORACLE_SAMPLE} {sample}", flush=True)
+        check(equal and sample, f"columnar {label}: results differ")
+        check(counts.get("host_sync") == 1 and len(counts) == 2
+              and sum(counts.values()) == 2,
+              f"columnar {label}: counts {counts} != one op + one sync")
+        check(not watch.sites, f"columnar {label}: uncounted sync at "
+              f"{watch.sites[:1]}")
+
+
+def load_example(name: str):
+    """The port example ``examples/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase() -> dict:
+    """Each port example's ``main`` on cuda:0 at its default size: its own
+    asserts hold, and it launched a scan, a visit and a VA-filter kernel.
+    -> kernel launches summed over the examples."""
+    from repro_torch.kernels import ops
+    total: dict[str, int] = {}
+    for name in EXAMPLES:
+        ops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        load_example(name).main(["--device", "cuda:0"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = ops.kernel_launches()
+        print(f"  {name}: {secs:.1f} s wall; kernel launches {launches}",
+              flush=True)
+        for group in EXAMPLE_KERNELS:
+            check(any(launches.get(k, 0) for k in group),
+                  f"{name} launched none of {group}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def main() -> int:
@@ -2885,12 +3103,17 @@ def main() -> int:
     with phase("compact"):
         compact_phase(eng, eng_plain, queries, *ingest)
 
-    # The LM phase needs the card's memory: free both engines first.
-    del eng, eng_plain, oracle
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"  engines freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-          f"allocated", flush=True)
+    with phase("examples"):
+        columnar_batch_checks(eng, eng_plain, queries)
+        # The examples and the LM phase need the card's memory: free both
+        # engines first.
+        del eng, eng_plain, oracle
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  engines freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
+              f"GB allocated", flush=True)
+        examples_phase()
+
     with phase("lm"):
         rows.append(lm_phase())
 

@@ -1,4 +1,5 @@
-"""The port's six mdrqlint rules.
+"""The port's seven mdrqlint rules (the three kernel-contract rules are in
+``analysis.contracts``).
 
 Ports ``repro/analysis/rules.py``. Each rule keeps its reference id and the
 invariant the engine's perf/correctness story depends on, pointed at
@@ -18,6 +19,10 @@ uncounted-launch    in ``kernels/`` and ``core/``, a call into the compiled
                     wrapper module (``multi_scan``, ``range_scan``,
                     ``reducers``, ``va_filter``, ``kv_visit``) happens only
                     inside a counted body
+raw-shard-map       copies between devices (``.to(<device>)``, ``.cuda()``,
+                    ``copy_``) only in ``core/distributed.py``
+                    (``DataMesh.replicate``/``gather``); an upload of a host
+                    tensor made in the same expression is not a mesh copy
 sentinel            no hardcoded ``3e38``-family extrema / ``inf``-into-
                     unknown-dtype casts; use ``repro_torch.numerics`` or
                     ``core.types.finite_query_bounds``
@@ -60,10 +65,11 @@ of a wrapper module counts as a launch: the modules are the device layer. A
 host helper of theirs used outside a counted body (the build's
 ``va_filter.pack_codes``) carries an inline suppression with its reason.
 
-Not ported (each is a JAX/Pallas construct the port does not have; ROADMAP
-lists the port construct each invariant maps to): ``raw-shard-map`` and the
-three kernel-contract rules ``kernel-tile``, ``kernel-dtype`` and
-``note-trace`` of ``repro/analysis/contracts.py``.
+The host-sync rule also covers the port's examples (``examples/*_torch.py``),
+as the reference's covers ``examples/``: an uncounted coercion there would
+hide a sync from the numbers the example prints. Three kernel-contract rules
+(``kernel-tile``, ``kernel-dtype``, ``note-trace``) live in
+``analysis.contracts`` and are re-exported through ``ALL_RULES`` here.
 """
 from __future__ import annotations
 
@@ -91,6 +97,15 @@ def _dotted(node: Optional[ast.AST]) -> Optional[str]:
 
 def _in_port(posix: str) -> bool:
     return "/repro_torch/" in posix or posix.startswith("repro_torch/")
+
+
+def _in_sync_scope(posix: str) -> bool:
+    """host-sync scope: the package plus the port's examples, which drive
+    it and print what they measure."""
+    if _in_port(posix):
+        return True
+    in_examples = "/examples/" in posix or posix.startswith("examples/")
+    return in_examples and posix.endswith("_torch.py")
 
 
 def _functions_with_class(tree: ast.AST) -> list[tuple[ast.AST,
@@ -432,7 +447,7 @@ class HostSyncRule(Rule):
                   "obs/tracing.py")   # span exit's sanctioned sync
 
     def check(self, ctx: FileContext) -> list[Finding]:
-        if not _in_port(ctx.posix) or "/analysis/" in ctx.posix:
+        if not _in_sync_scope(ctx.posix) or "/analysis/" in ctx.posix:
             return []
         if any(ctx.posix.endswith(a) for a in self._ALLOWLIST):
             return []
@@ -688,7 +703,69 @@ class UncountedLaunchRule(Rule):
 
 
 # ---------------------------------------------------------------------------
-# rule 3: sentinel
+# rule 3: raw-shard-map
+# ---------------------------------------------------------------------------
+
+# ``.to(x)`` casts when ``x`` names a dtype: ``torch.<dtype>``, a name or
+# attribute ending in "dtype", or an upper-case dtype constant (``F32``).
+_TORCH_DTYPES = {
+    "float16", "float32", "float64", "bfloat16", "half", "float", "double",
+    "int8", "int16", "int32", "int64", "uint8", "bool", "long", "int",
+    "short", "complex64", "complex128"}
+# A receiver built from host data in the same expression makes ``.to`` an
+# upload, not a copy between the devices of a mesh.
+_HOST_TENSOR_FNS = {"torch.from_numpy", "from_numpy", "pin_memory"}
+
+
+def _is_dtype_expr(e: ast.AST) -> bool:
+    d = _dotted(e) or ""
+    head, _, last = d.rpartition(".")
+    if head == "torch" and last in _TORCH_DTYPES:
+        return True
+    return bool(last) and (last.endswith("dtype") or last.isupper())
+
+
+def _host_receiver(e: ast.AST) -> bool:
+    return any(isinstance(n, ast.Call)
+               and ((_dotted(n.func) or "") in _HOST_TENSOR_FNS
+                    or (isinstance(n.func, ast.Attribute)
+                        and n.func.attr in _HOST_TENSOR_FNS))
+               for n in ast.walk(e))
+
+
+class RawShardMapRule(Rule):
+    rule_id = "raw-shard-map"
+    doc = ("Copies between devices (.to(<device>), .cuda(), copy_) only in "
+           "core/distributed.py (DataMesh.replicate/gather): one place owns "
+           "how a mesh moves data, so a sharded path's copies stay where "
+           "the collectives are counted.")
+
+    _MSG = ("device copy outside core/distributed.py — move data between the "
+            "devices of a mesh through DataMesh.replicate/gather")
+
+    def check(self, ctx: FileContext) -> list[Finding]:
+        if not _in_port(ctx.posix) or "/analysis/" in ctx.posix \
+                or ctx.posix.endswith("core/distributed.py"):
+            return []
+        findings = []
+        for node in ast.walk(ctx.tree):
+            if not (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)):
+                continue
+            attr, recv = node.func.attr, node.func.value
+            if attr in ("copy_", "cuda"):
+                findings.append(self.finding(ctx, node, self._MSG))
+            elif attr == "to" and not _host_receiver(recv):
+                device_kw = any(k.arg == "device" for k in node.keywords)
+                device_arg = bool(node.args) and not _is_dtype_expr(
+                    node.args[0])
+                if device_kw or device_arg:
+                    findings.append(self.finding(ctx, node, self._MSG))
+        return findings
+
+
+# ---------------------------------------------------------------------------
+# rule 4: sentinel
 # ---------------------------------------------------------------------------
 
 _CAST_FNS = {"torch.tensor", "torch.as_tensor", "torch.full",
@@ -750,7 +827,7 @@ class SentinelRule(Rule):
 
 
 # ---------------------------------------------------------------------------
-# rule 4: lock-discipline
+# rule 5: lock-discipline
 # ---------------------------------------------------------------------------
 
 def _lockish(ctx: FileContext, w: ast.With, needle: str = "_lock") -> bool:
@@ -881,7 +958,7 @@ class LockDisciplineRule(Rule):
 
 
 # ---------------------------------------------------------------------------
-# rule 5: registry-hygiene
+# rule 6: registry-hygiene
 # ---------------------------------------------------------------------------
 
 _REGISTER_DECOS = {"register_result_spec", "register_path"}
@@ -946,7 +1023,7 @@ class RegistryHygieneRule(Rule):
 
 
 # ---------------------------------------------------------------------------
-# rule 6: thread-boundary
+# rule 7: thread-boundary
 # ---------------------------------------------------------------------------
 
 class ThreadBoundaryRule(Rule):
@@ -1038,7 +1115,10 @@ class ThreadBoundaryRule(Rule):
         return findings
 
 
+# imported at the bottom: contracts.py needs the helpers defined above
+from repro_torch.analysis.contracts import CONTRACT_RULES  # noqa: E402
+
 ALL_RULES: tuple[Rule, ...] = (
-    HostSyncRule(), UncountedLaunchRule(), SentinelRule(),
+    HostSyncRule(), UncountedLaunchRule(), RawShardMapRule(), SentinelRule(),
     LockDisciplineRule(), RegistryHygieneRule(), ThreadBoundaryRule(),
-)
+) + CONTRACT_RULES

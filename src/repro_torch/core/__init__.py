@@ -15,11 +15,13 @@ Public API:
   * planning: ``Planner``, ``Histograms``, ``CostModel``, ``BatchPlan``
 """
 from repro_torch.core.types import (Agg, Count, Dataset, DeltaHostCtx, Ids,
-                                    Mask, QueryBatch, RangeQuery, ResultSpec,
-                                    TopK,
+                                    Mask, QueryBatch, RangeQuery,
+                                    RESULT_MODES, ResultSpec, TopK,
                                     match_ids_np, match_mask_np,
-                                    register_result_spec, resolve_spec)
-from repro_torch.core.engine import BatchStats, MDRQEngine, PendingBatch
+                                    register_result_spec, resolve_spec,
+                                    validate_mode)
+from repro_torch.core.engine import (ALL_METHODS, BatchStats, MDRQEngine,
+                                     PendingBatch)
 from repro_torch.core.paths import (AccessPath, BlockedIndexPath,
                                     PerQueryPath, PlanInputs, VAFilePath)
 from repro_torch.core.scan import RowScan, build_columnar_scan, build_row_scan
@@ -36,10 +38,12 @@ from repro_torch.core.distributed import (DataMesh, DistributedScan,
                                           make_data_mesh)
 
 __all__ = [
-    "Dataset", "QueryBatch", "RangeQuery", "match_ids_np", "match_mask_np",
-    "resolve_spec", "ResultSpec", "Ids", "Count", "Mask", "TopK", "Agg",
+    "Dataset", "QueryBatch", "RangeQuery", "RESULT_MODES", "match_ids_np",
+    "match_mask_np", "validate_mode", "resolve_spec", "ResultSpec", "Ids",
+    "Count", "Mask", "TopK", "Agg",
     "register_result_spec",
-    "MDRQEngine", "BatchStats", "PendingBatch", "engine_from_arrays",
+    "MDRQEngine", "ALL_METHODS", "BatchStats", "PendingBatch",
+    "engine_from_arrays",
     "AccessPath", "PerQueryPath", "PlanInputs", "BlockedIndexPath",
     "VAFilePath", "build_columnar_scan", "build_kdtree", "build_rstar",
     "build_vafile", "BlockedIndex", "VAFile", "RowScan", "build_row_scan",

@@ -344,7 +344,7 @@ class BlockedIndex:
         pruned through on a frozen dataset. ``delta`` rides the visit op
         (see ``launch_visits_batch``).
         """
-        spec = T.resolve_spec(spec).validate(self.m)
+        spec = T.validate_mode(spec).validate(self.m)
         q_n = len(batch)
         q_pad = _next_pow2(q_n)  # pow2 query bucket bounds launch shapes
         qlo, qhi = batch.bounds_columnar(self.m, q_pad)

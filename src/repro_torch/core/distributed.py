@@ -392,7 +392,7 @@ class DistributedScan:
         """Device half of ``query_batch`` -> (payload, finalize): the op
         without its host sync; ``finalize(host_payload)`` takes the
         caller's one counted ``ops.device_get(payload)``."""
-        spec = T.resolve_spec(spec).validate(self.m)
+        spec = T.validate_mode(spec).validate(self.m)
         batch, lo, up, rows = self._batch_bounds(batch)
         dcm = tomb = None
         if delta is not None and not delta.is_empty:

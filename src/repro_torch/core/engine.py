@@ -59,6 +59,11 @@ from repro_torch.core.vafile import build_vafile
 # The structures ``structures`` can name (the reference's default set); the
 # row-major scan is the ``rowscan=True`` flag, as in the reference.
 STRUCTURES = ("scan", "kdtree", "rstar", "vafile")
+# The built-in access paths (every name ``structures``/``rowscan``/``mesh``
+# can put in the registry). The registry itself — ``MDRQEngine.paths`` — is
+# the authoritative routing table; this tuple is the build vocabulary.
+ALL_METHODS = ("scan", "scan_vertical", "rowscan", "kdtree", "rstar", "vafile")
+RESULT_MODES = T.RESULT_MODES
 
 
 def resolve_device(device=None) -> torch.device:
@@ -546,6 +551,7 @@ class MDRQEngine:
         queries: Union[T.QueryBatch, Sequence[T.RangeQuery]],
         method: str = "auto",
         spec: Optional[T.ResultSpec] = None,
+        mode: Optional[str] = None,
     ) -> PendingBatch:
         """Device stage of a split ``query_batch`` -> a ``PendingBatch``.
 
@@ -557,9 +563,10 @@ class MDRQEngine:
         filter's survivors) here, before its visit launch. Buckets whose path
         lacks the split protocol execute synchronously inside this call. The
         state and the delta snapshot are captured here, once.
+        ``mode="ids"|"count"`` is the deprecated string alias of ``spec``.
         """
         state = self._state
-        spec = T.resolve_spec(spec)
+        spec = T.resolve_spec(spec, mode)
         batch = _as_batch(queries)
         if batch is None or len(batch) == 0:
             return PendingBatch(0, spec, [], {}, 0.0, 0.0, state.version)
@@ -594,15 +601,17 @@ class MDRQEngine:
         return pending
 
     def query(self, q: T.RangeQuery, method: str = "auto",
-              spec: Optional[T.ResultSpec] = None):
+              spec: Optional[T.ResultSpec] = None,
+              mode: Optional[str] = None):
         """Execute q under a ResultSpec -> sorted ids (default ``Ids()``),
         an int count, a bool mask, top-k ids, or an aggregate; records
-        QueryStats."""
+        QueryStats. ``mode="ids"|"count"`` is the deprecated string alias.
+        """
         state = self._state
         if q.m != state.dataset.m:
             raise ValueError(f"query dims {q.m} != dataset dims "
                              f"{state.dataset.m}")
-        spec = T.resolve_spec(spec).validate(state.dataset.m)
+        spec = T.resolve_spec(spec, mode).validate(state.dataset.m)
         dview, delta_arg = self._snapshot(state)
         state.planner.model.delta_n = dview.d
         if method == "auto":
@@ -635,6 +644,7 @@ class MDRQEngine:
         queries: Union[T.QueryBatch, Sequence[T.RangeQuery]],
         method: str = "auto",
         spec: Optional[T.ResultSpec] = None,
+        mode: Optional[str] = None,
         trace: bool = False,
     ) -> list:
         """Execute a batch of queries under a ResultSpec -> per-query typed
@@ -651,10 +661,11 @@ class MDRQEngine:
         ``trace=True`` installs an ``obs.Tracer`` for the duration and leaves
         a ``BatchTrace`` in ``last_trace``: one ``QueryTrace`` per query plus
         the span tree. With ``trace=False`` the span calls short-circuit to
-        ``obs.NULL_SPAN``.
+        ``obs.NULL_SPAN``. ``mode="ids"|"count"`` is the deprecated string
+        alias of ``spec``.
         """
         state = self._state
-        spec = T.resolve_spec(spec)
+        spec = T.resolve_spec(spec, mode)
         batch = _as_batch(queries)
         if batch is None or len(batch) == 0:
             self.last_batch_stats = BatchStats(0, 0.0, {}, 0, methods=[])

@@ -415,7 +415,7 @@ class PerQueryPath:
 
     def query_batch(self, batch: T.QueryBatch,
                     spec: T.ResultSpec = T.IDS, delta=None) -> Results:
-        spec = T.resolve_spec(spec)
+        spec = T.validate_mode(spec)
         with _path_span(self, batch, spec):
             if delta is not None and not delta.is_empty:
                 return self._query_batch_delta(batch, spec, delta)

@@ -713,6 +713,29 @@ class Planner:
             costs=costs,
         )
 
+    def explain_batch(self, queries, spec: T.ResultSpec = T.IDS) -> list[Plan]:
+        """Per-query plans under whole-batch amortization — literally
+        iteration 1 of ``plan_batch``'s fixpoint, reshaped into Plans (kept
+        for cost introspection: every Plan carries the per-path cost dict)."""
+        queries = list(queries)
+        if not queries:
+            return []
+        bp = self.plan_batch(T.QueryBatch.from_queries(queries), max_iters=1,
+                             spec=spec)
+        plans = []
+        for k in range(len(queries)):
+            cd = {name: float(bp.costs[j, k])
+                  for j, name in enumerate(bp.path_names)
+                  if np.isfinite(bp.costs[j, k])}
+            plans.append(Plan(method=bp.methods[k],
+                              est_selectivity=float(bp.est_selectivity[k]),
+                              costs=cd))
+        return plans
+
+    def choose(self, q: T.RangeQuery, batch_size: int = 1) -> str:
+        """The access path ``explain`` ranks first for ``q``."""
+        return self.explain(q, batch_size=batch_size).method
+
     def break_even_selectivity(self, m_q: Optional[int] = None,
                                batch_size: int = 1,
                                index_path: str = "tree",

@@ -17,6 +17,10 @@ so arbitrary batch sizes hit a bounded set of launch shapes. The payload
 crosses in one host sync. A ``delta`` (``core.delta.DeltaView``) rides the
 same op: base tombstones fold into the masks on the device, the delta block
 scans with the same bounds, and the spec merges the two finalized halves.
+``mask_batch`` / ``mask_batch_partial`` return the (Q, n) masks of one fused
+mask launch, ``count_batch`` the counts of one fused scan + count launch;
+each is one counted op and one host sync. ``numpy_scan_ids`` is the
+single-core numpy baseline.
 """
 from __future__ import annotations
 
@@ -109,6 +113,41 @@ class ColumnarScan:
         return int(ops.device_get(ops.mask_counts(out)))
 
     # -- batched execution (fused multi-query kernels) ---------------------
+    # The query axis pads to a pow2 bucket (match-all padding columns, rows
+    # dropped here) so arbitrary batch sizes hit a bounded set of shapes.
+    def mask_batch(self, batch: T.QueryBatch) -> np.ndarray:
+        """(Q, n) bool match masks from one fused full-scan launch."""
+        out = self._mask_batch_device(batch, partial=False)
+        return ops.device_get(out)[: len(batch), : self.n] > 0
+
+    def mask_batch_partial(self, batch: T.QueryBatch) -> np.ndarray:
+        """(Q, n) bool masks touching only each query's constrained dims."""
+        out = self._mask_batch_device(batch, partial=True)
+        return ops.device_get(out)[: len(batch), : self.n] > 0
+
+    def _mask_batch_device(self, batch: T.QueryBatch,
+                           partial: bool) -> torch.Tensor:
+        """(q_pad, n_pad) device masks from one fused launch (rows >= Q and
+        columns >= n are padding; object padding never matches)."""
+        dev = self.data_dev.device
+        q_pad, lo, up = bucketed_batch_bounds(batch, self.m_pad,
+                                              self.data_dev.dtype, dev)
+        if partial:
+            ids = batch.padded_dim_ids(q_pad)
+            return ops.multi_range_scan_vertical(
+                self.data_dev, ops.dim_ids_device(ids, self.m_pad, dev), lo,
+                up, tile_n=self.tile_n, rows=int(np.unique(ids).size),
+                backend=self.backend)
+        return ops.multi_range_scan(
+            self.data_dev, lo, up, tile_n=self.tile_n, m=self.m,
+            rows=int(batch.dims_mask.any(axis=0).sum()), backend=self.backend)
+
+    def count_batch(self, batch: T.QueryBatch, partial: bool = False
+                    ) -> list[int]:
+        """Per-query match counts: one fused scan + count launch, one O(Q)
+        host transfer."""
+        return self.query_batch(batch, partial=partial, spec=T.COUNT)
+
     def query_batch(self, batch: T.QueryBatch, partial: bool = False,
                     spec: T.ResultSpec = T.IDS, delta=None) -> list:
         """Batched execution under any ResultSpec: the fused multi-query
@@ -129,7 +168,7 @@ class ColumnarScan:
         single counted ``ops.device_get(payload)`` — runs the spec's host
         finalizer (and, under a delta, the spec's merge).
         """
-        spec = T.resolve_spec(spec).validate(self.m)
+        spec = T.validate_mode(spec).validate(self.m)
         dev = self.data_dev.device
         q_pad, lo, up = bucketed_batch_bounds(batch, self.m_pad,
                                               self.data_dev.dtype, dev)
@@ -213,3 +252,8 @@ def build_row_scan(dataset: T.Dataset, tile_rows: int = 512, *, device,
                                             device=device),
                    m=dataset.m, n=dataset.n, tile_rows=tile_rows,
                    backend=ops.check_backend(backend))
+
+
+def numpy_scan_ids(cols: np.ndarray, q: T.RangeQuery) -> np.ndarray:
+    """Single-core numpy scan — the host-side baseline."""
+    return T.match_ids_np(cols, q)

@@ -522,37 +522,45 @@ class DeltaHostCtx:
     delta_rows: np.ndarray      # (d, m) delta rows
 
 
-# The deprecated ``mode=`` strings the server still takes, and their specs.
+# The deprecated ``mode=`` strings the entry points still take, and their
+# specs.
 RESULT_MODES = ("ids", "count")
 _MODE_SPECS: dict[str, ResultSpec] = {"ids": IDS, "count": COUNT}
 
 
-def resolve_spec(spec: Optional[ResultSpec] = None,
-                 mode: Optional[str] = None) -> ResultSpec:
-    """The spec argument of the public entry points: ``None`` means
-    ``Ids()``; anything that is not a ``ResultSpec`` is rejected.
+def validate_mode(mode) -> ResultSpec:
+    """Canonicalize a result spec; the one place unknown specs are rejected.
 
-    ``mode`` is the deprecated string alias (``"ids"`` / ``"count"``) of the
-    server's signature: it maps to ``Ids()`` / ``Count()`` with a
-    ``DeprecationWarning``; passing both is an error (ambiguous intent).
+    ``ResultSpec`` instances pass through untouched. The legacy string
+    spellings ``"ids"`` / ``"count"`` map to ``Ids()`` / ``Count()`` with a
+    single ``DeprecationWarning`` (every layer hands the resolved spec
+    object down, so the warning fires once per user call, at the boundary).
+    Anything else gets the canonical error.
     """
-    if mode is not None:
-        if spec is not None:
-            raise ValueError("pass spec= or the deprecated mode=, not both")
-        if mode not in _MODE_SPECS:
-            raise ValueError(f"unknown mode {mode!r}; options: {RESULT_MODES} "
-                             f"or a types.ResultSpec")
+    if isinstance(mode, ResultSpec):
+        return mode
+    if isinstance(mode, str) and mode in _MODE_SPECS:
         warnings.warn(
             f"mode={mode!r} strings are deprecated; pass a ResultSpec "
             f"(types.{_MODE_SPECS[mode].kind.capitalize()}()) instead",
             DeprecationWarning, stacklevel=3)
         return _MODE_SPECS[mode]
-    if spec is None:
+    raise ValueError(f"unknown mode {mode!r}; options: {RESULT_MODES} "
+                     f"or a types.ResultSpec")
+
+
+def resolve_spec(spec: Optional[ResultSpec] = None,
+                 mode: Optional[str] = None) -> ResultSpec:
+    """Resolve the (spec=..., mode=...) pair of the public entry points.
+
+    ``spec`` is the typed protocol; ``mode`` is the deprecated string alias.
+    Both default to ``Ids()``; passing both is an error (ambiguous intent).
+    """
+    if spec is not None and mode is not None:
+        raise ValueError("pass spec= or the deprecated mode=, not both")
+    if spec is None and mode is None:
         return IDS
-    if isinstance(spec, ResultSpec):
-        return spec
-    raise ValueError(f"unknown result spec {spec!r}; pass a types.ResultSpec "
-                     f"({', '.join(sorted(RESULT_SPEC_KINDS))})")
+    return validate_mode(spec if spec is not None else mode)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -605,6 +613,10 @@ class RangeQuery:
             lo[j], up[j] = np.float32(a), np.float32(b)
         return RangeQuery(lo, up)
 
+    def reorder(self, order: np.ndarray) -> "RangeQuery":
+        """Query with dimensions permuted by ``order`` (selectivity ordering)."""
+        return RangeQuery(self.lower[order], self.upper[order])
+
 
 @dataclasses.dataclass(frozen=True)
 class QueryBatch:
@@ -646,6 +658,10 @@ class QueryBatch:
     @property
     def m(self) -> int:
         return self.lower.shape[1]
+
+    @property
+    def queries(self) -> list["RangeQuery"]:
+        return [self[k] for k in range(len(self))]
 
     @property
     def dims_mask(self) -> np.ndarray:
@@ -718,6 +734,16 @@ class Dataset:
         """(n, m) row-major copy of the data."""
         return np.ascontiguousarray(self.cols.T)
 
+    @staticmethod
+    def from_rows(rows: np.ndarray) -> "Dataset":
+        """The dataset of (n, m) row-major ``rows``."""
+        rows = np.asarray(rows, np.float32)
+        return Dataset(np.ascontiguousarray(rows.T))
+
+    def selectivity(self, q: RangeQuery) -> float:
+        """Exact selectivity of ``q`` on this dataset (fraction in [0, 1])."""
+        return float(match_mask_np(self.cols, q).mean())
+
 
 def match_mask_np(cols: np.ndarray, q: RangeQuery) -> np.ndarray:
     """Numpy oracle: (n,) bool mask of objects matching q. O(n·m)."""
@@ -729,6 +755,13 @@ def match_mask_np(cols: np.ndarray, q: RangeQuery) -> np.ndarray:
 def match_ids_np(cols: np.ndarray, q: RangeQuery) -> np.ndarray:
     """Numpy oracle: sorted identifiers of matching objects."""
     return np.nonzero(match_mask_np(cols, q))[0].astype(np.int64)
+
+
+def mask_to_ids(mask) -> np.ndarray:
+    """Host mask -> sorted id array. A device mask crosses through the
+    counted ``ops.device_get`` first: a CUDA tensor here raises rather than
+    syncing uncounted."""
+    return np.nonzero(np.asarray(mask))[0].astype(np.int64)
 
 
 def next_pow2(x: int) -> int:

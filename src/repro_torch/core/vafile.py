@@ -187,7 +187,7 @@ class VAFile:
         """
         from repro_torch.core.blockindex import launch_visits_batch
 
-        spec = T.resolve_spec(spec).validate(self.m)
+        spec = T.validate_mode(spec).validate(self.m)
         q_n = len(batch)
         qids, bids = self._candidate_blocks_batch(batch)
         self.last_visited_blocks = int(qids.size)

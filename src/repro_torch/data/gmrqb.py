@@ -19,6 +19,8 @@ dataset and the same queries in both packages.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from repro_torch.core import types as T
@@ -160,3 +162,42 @@ def mixed_workload(
         k = int(rng.integers(1, 9))
         out.append((k, template(k, rng, dataset)))
     return out
+
+
+@dataclasses.dataclass
+class Table1Row:
+    template: int
+    avg_selectivity: float
+    std_selectivity: float
+    avg_dims: float
+
+
+# The paper's Table 1: each template's published selectivity and dims.
+PAPER_TABLE1 = [
+    Table1Row(1, 0.1076, 0.0724, 2),
+    Table1Row(2, 0.0219, 0.0227, 5),
+    Table1Row(3, 0.0536, 0.0361, 3),
+    Table1Row(4, 0.0022, 0.0015, 4),
+    Table1Row(5, 0.0020, 0.0015, 5),
+    Table1Row(6, 0.0011, 0.0011, 6),
+    Table1Row(7, 0.0005, 0.0006, 7),
+    Table1Row(8, 1e-7, 2e-7, 19),
+]
+
+
+def measure_table1(n: int = 200_000, n_inst: int = 50, seed: int = 0):
+    """Measure achieved template selectivities (benchmark-reported Table 1)
+    -> (the dataset, one ``Table1Row`` per template)."""
+    ds = build(n, seed)
+    rng = np.random.default_rng(seed + 1)
+    rows = []
+    for k in range(1, 9):
+        sels = []
+        dims = []
+        for _ in range(n_inst):
+            q = template(k, rng, ds)
+            sels.append(ds.selectivity(q))
+            dims.append(q.n_queried_dims)
+        rows.append(Table1Row(k, float(np.mean(sels)), float(np.std(sels)),
+                              float(np.mean(dims))))
+    return ds, rows

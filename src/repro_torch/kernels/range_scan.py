@@ -307,6 +307,7 @@ def visit_cuda(name: str, data_cm: torch.Tensor, query_ids, block_ids: torch.Ten
     dev = data_cm.device
     data = cuda_input(data_cm, torch.float32, "data_cm", dev)
     m_pad, n_pad = data.shape
+    check_tiling(m_pad, n_pad, tile_n)
     n_visit = block_ids.shape[0]
     for x, label in ((query_ids, "query_ids"), (block_ids, "block_ids")):
         if x is not None and x.device != dev:

@@ -27,6 +27,21 @@ def range_scan_ref(data_cm: torch.Tensor, lower: torch.Tensor,
     return ok.all(dim=0).to(torch.int8)
 
 
+def range_scan_blocks_ref(data_blocks: torch.Tensor, block_ids: torch.Tensor,
+                          lower: torch.Tensor,
+                          upper: torch.Tensor) -> torch.Tensor:
+    """Single-query block visit: (n_blocks, m, tn) columnar leaf blocks,
+    (n_visit,) block ids (may repeat; negative = padding, clamped to block
+    0 — callers drop those rows), (m,) or (m, 1) bounds -> (n_visit, tn)
+    int8 per-visit masks."""
+    ids = block_ids.long().clamp(min=0)
+    blocks = data_blocks[ids]  # (v, m, tn)
+    lo = lower.reshape(1, -1, 1).to(data_blocks.dtype)
+    up = upper.reshape(1, -1, 1).to(data_blocks.dtype)
+    ok = torch.logical_and(blocks >= lo, blocks <= up)
+    return ok.all(dim=1).to(torch.int8)
+
+
 def range_scan_rows_ref(data_rm: torch.Tensor, lower: torch.Tensor,
                         upper: torch.Tensor) -> torch.Tensor:
     """(n, m) row-major data, (1, m) bounds -> (n,) int8 mask, 1 where
@@ -117,6 +132,18 @@ def multi_scan_blocks_ref(data_blocks: torch.Tensor, query_ids: torch.Tensor,
             acc = ok if acc is None else torch.logical_and(acc, ok)
         out[v0: v0 + step] = acc.to(torch.int8)
     return out
+
+
+def va_filter_ref(codes: torch.Tensor, cell_lo: torch.Tensor,
+                  cell_hi: torch.Tensor) -> torch.Tensor:
+    """The VA filter on *unpacked* codes: (m, n) integer cell codes in [0, 3]
+    (2 bits per dim, paper §2.2.3), (m,) or (m, 1) int32 query cell bounds
+    -> (n,) int8 candidate mask, 1 where every dim's code lies in the
+    query's [cell_lo, cell_hi]."""
+    lo = cell_lo.reshape(-1, 1).to(codes.dtype)
+    hi = cell_hi.reshape(-1, 1).to(codes.dtype)
+    ok = torch.logical_and(codes >= lo, codes <= hi)
+    return ok.all(dim=0).to(torch.int8)
 
 
 def va_filter_packed_ref(packed: torch.Tensor, cell_lo: torch.Tensor,

@@ -29,6 +29,11 @@ from repro_torch.kernels.range_scan import LANES, block_threads, cuda_input
 BITS_PER_DIM = 2
 CODE_MASK = (1 << BITS_PER_DIM) - 1
 DIMS_PER_WORD = 32 // BITS_PER_DIM
+# The reference's default object tile of its filter kernels. The CUDA kernel
+# takes any ``n_pad`` that is a multiple of ``LANES`` (imported above), so
+# nothing here requires it; it stays the size a caller that tiles the packed
+# codes as the reference does would pick.
+DEFAULT_TILE_N = 2048
 
 
 def pack_codes(codes: np.ndarray) -> np.ndarray:

@@ -167,6 +167,11 @@ def span(name: str, **attrs):
     return Span(t, name, attrs)
 
 
+def current() -> Optional["Tracer"]:
+    """The calling thread's active tracer, or None."""
+    return getattr(_TLS, "tracer", None)
+
+
 class Tracer:
     """Collects a span tree. ``with Tracer() as t:`` installs it as the
     active tracer (nesting restores the previous one on exit)."""

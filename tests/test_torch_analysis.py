@@ -680,8 +680,10 @@ def test_port_tree_is_clean():
 
 def test_all_rules_have_ids_and_docs():
     ids = [r.rule_id for r in ALL_RULES]
-    assert ids == ["host-sync", "uncounted-launch", "sentinel",
-                   "lock-discipline", "registry-hygiene", "thread-boundary"]
+    assert ids == ["host-sync", "uncounted-launch", "raw-shard-map",
+                   "sentinel", "lock-discipline", "registry-hygiene",
+                   "thread-boundary", "kernel-tile", "kernel-dtype",
+                   "note-trace"]
     assert all(r.doc for r in ALL_RULES)
 
 

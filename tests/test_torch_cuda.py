@@ -37,7 +37,9 @@ after ``warmup()``. The budget under ``torch.cuda.set_sync_debug_mode
 ("error")``: ``ops.upload`` never waits for the stream (a pageable copy
 raises), and every certified path's ``launch_batch`` and ``finalize``,
 frozen and under a delta, synchronize only in ``ops.device_get``, at the
-counts ``BUDGET_torch.json`` certifies.
+counts ``BUDGET_torch.json`` certifies; so do ``ColumnarScan.mask_batch``,
+``mask_batch_partial`` and ``count_batch`` (one counted op, one counted
+sync each).
 """
 import contextlib
 import json
@@ -1118,3 +1120,36 @@ def test_launch_batch_syncs_only_where_counted(dev, method, delta):
                 assert g == pytest.approx(w, rel=SUM_RTOL)
             else:
                 assert g == w
+
+
+@pytest.mark.parametrize("call", ["mask_batch", "mask_batch_partial",
+                                  "count_batch", "count_batch_partial"])
+def test_columnar_batch_calls_sync_only_where_counted(dev, call):
+    """``ColumnarScan.mask_batch`` / ``mask_batch_partial`` / ``count_batch``
+    on the card under the error mode: one counted op and one counted host
+    sync per call, results equal to the plain backend's and to numpy."""
+    from repro_torch.core.scan import numpy_scan_ids
+    ds = gmrqb.build(60_000, seed=11)
+    qs = [q for _, q in gmrqb.mixed_workload(ds, 40, seed=12)]
+    batch = QueryBatch.from_queries(qs)
+    eng = MDRQEngine(ds, structures=("scan",), tile_n=1024)
+    plain = MDRQEngine(ds, structures=("scan",), tile_n=1024,
+                       backend="torch")
+    name = "count_batch" if call.startswith("count") else call
+    kw = {"partial": True} if call == "count_batch_partial" else {}
+    want = getattr(plain.columnar, name)(batch, **kw)
+    getattr(eng.columnar, name)(batch, **kw)              # warm
+    torch.cuda.synchronize()
+    ops.reset_counters()
+    with sync_errors():
+        got = getattr(eng.columnar, name)(batch, **kw)
+    counts = ops.counters()
+    assert counts.pop("host_sync") == 1
+    assert list(counts.values()) == [1], counts
+    if name == "count_batch":
+        assert got == want == [numpy_scan_ids(ds.cols, q).size for q in qs]
+    else:
+        np.testing.assert_array_equal(got, want)
+        for k, q in enumerate(qs):
+            np.testing.assert_array_equal(np.nonzero(got[k])[0],
+                                          numpy_scan_ids(ds.cols, q))

@@ -1,10 +1,11 @@
 """The port's import rule: nothing of ``repro_torch`` and nothing of
-``chip_smoke.py`` (or the tools that drive the port on the card) imports
-``jax`` or the reference package ``repro``.
+``chip_smoke.py``, the tools that drive the port on the card or the port's
+examples (``examples/*_torch.py``) imports ``jax`` or the reference package
+``repro``.
 
-Two checks: a fresh interpreter imports every module of ``src/repro_torch``
-and ``chip_smoke.py``'s helpers and must end with neither package in
-``sys.modules``; and every ``import`` statement of those files, including
+Two checks: a fresh interpreter imports every module of ``src/repro_torch``,
+``chip_smoke.py``'s helpers, the tools and the port's examples and must end
+with neither package in ``sys.modules``; and every ``import`` statement of those files, including
 the ones inside functions that run only on the card, names neither.
 """
 import ast
@@ -16,12 +17,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SCRIPTS = (ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("*.py")))
+TOOLS = tuple(sorted((ROOT / "tools").glob("*.py")))
+EXAMPLES = tuple(ROOT / "examples" / name for name in (
+    "quickstart_torch.py", "gmrqb_demo_torch.py", "batched_queries_torch.py"))
+SCRIPTS = (ROOT / "chip_smoke.py", *TOOLS, *EXAMPLES)
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
-sys.path[:0] = [{src!r}, {root!r}, {tools!r}]
+sys.path[:0] = [{src!r}, {root!r}, {tools!r}, {examples!r}]
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
@@ -41,10 +45,11 @@ def _forbidden(name: str) -> bool:
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
-    tools_mods = [p.stem for p in SCRIPTS[1:]]
+    tools_mods = [p.stem for p in TOOLS + EXAMPLES]
     code = _PROBE.format(src=str(ROOT / "src"), root=str(ROOT),
-                         tools=str(ROOT / "tools"), tools_mods=tools_mods,
-                         forbidden=FORBIDDEN)
+                         tools=str(ROOT / "tools"),
+                         examples=str(ROOT / "examples"),
+                         tools_mods=tools_mods, forbidden=FORBIDDEN)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, env=env, cwd=ROOT)
