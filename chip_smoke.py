@@ -16,8 +16,9 @@ non-zero without printing a result:
                the STR R*-tree and the VA-file, each padded to
                (24, 10,000,384) float32 on the card (the trees permuted), plus
                the VA-file's packed codes — and the row-major scan
-               (``rowscan=True``: (10,000,384, 24) float32). Each build's time
-               is printed.
+               (``rowscan=True``: (10,000,384, 24) float32). The two engines
+               build side by side on two host threads; each build's time is
+               printed.
   4. kernels — each hand kernel against its plain version at the main paths'
                shapes (Q = 1 and Q = 128, with the ``m`` and ``rows``
                arguments ``ColumnarScan`` passes, each scan also timed
@@ -142,9 +143,9 @@ non-zero without printing a result:
                TopK d3 per path, frozen and under the delta; the tombstone
                fold's time.
  14. budget:delta — the budget phase again, under the live delta.
- 15. compact — ``compact()`` on both engines (id map, version 1, seconds,
-               peak device memory), then the delta phase's B = 128 checks
-               again.
+ 15. compact — ``compact()`` on both engines, side by side on two host
+               threads (id map, version 1, seconds, peak device memory),
+               then the delta phase's B = 128 checks again.
  16. examples — ``ColumnarScan.mask_batch``, ``mask_batch_partial`` and
                ``count_batch`` (also ``partial=True``) at B = 128 of the
                workload on the compacted engine: equal to the plain
@@ -158,7 +159,7 @@ non-zero without printing a result:
                a scan, a visit and a VA-filter kernel; its wall seconds and
                kernel launches are printed.
  17. lm      — the LM decode-serving path, after both engines are freed.
-               Qwen3-8B at full width and depth (36 layers, d_model 4096,
+               Qwen3-8B at full width, 4 of its 36 layers (d_model 4096,
                random bf16 weights from a torch.Generator, seed 0):
                ``BatchServer(slots=4, max_len=1024)`` serves 8 requests
                (seed 0; prompts of 4-15 tokens, 16 new tokens) through the
@@ -197,6 +198,33 @@ non-zero without printing a result:
                device and host time, and ``scaled_dot_product_attention``
                over the whole cache; and the same times at the server shape
                (the multi-block set's call with the most valid keys).
+ 18. lm_families — every family's decode-serving path, one model at a
+               time (random bf16 weights from a torch.Generator, seed 0),
+               each freed before the next: deepseek-moe-16b as published
+               (int8 cache, prune 4 of 32 blocks of 32 keys), arctic-480b
+               at 1 of 35 layers and llava-next-34b at 8 of 60 (full
+               width), h2o-danube-1.8b (int8, its 4,096-slot window),
+               recurrentgemma-2b, mamba2-780m and seamless-m4t-large-v2
+               (its cross cache filled from seeded stub frame embeddings,
+               max_len // 4 of them) as published. Each serves the lm
+               phase's multi-block set (8 requests, prompts 40-120, 24
+               new) through ``BatchServer(slots=4, max_len=1024)``, every
+               kernel call held against its plain version, and is replayed
+               teacher-forced on the plain backend (``teacher_forced_check``;
+               an MoE replay takes the served run's expert ids, and prints
+               per MoE layer how many its own top-k would have changed);
+               printed: parameter GB, peak memory, ms per step, the tokens
+               that agree. h2o-danube then decodes positions 4,090-4,100
+               across its ring's wrap (each step writes slot pos % 4096
+               alone). deepseek-moe-16b then decodes the long context: B = 4
+               at 32,768 slots, 16 of 64 blocks of 512, int8, 8 steps on
+               both backends, warm step times pruned and on the full int8
+               cache, and the int8 instance's row on the last step's
+               layer-0 call: against its plain version and the bf16
+               instance on the dequantized cache, a planted fault,
+               its time beside the bf16 instance's and the
+               gather-and-dequantize route's; then its error and time at
+               the server shape (the served call with the most valid keys).
 
 The last three lines are the kernel table (JSON), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -211,6 +239,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import warnings
@@ -295,6 +324,10 @@ COMPARE_RATE_SOURCE = ("CUDA C++ Programming Guide, arithmetic instruction "
 
 # -- the LM phase --
 LM_ARCH = "qwen3_8b"
+# Qwen3-8B at full width, cut to 4 of its 36 layers: the lm_families
+# phase needed the time, and the kernel's shapes per layer, the server's and
+# the long context's, are the same at any depth
+LM_LAYERS = 4
 LM_SEED = 0
 LM_REQUESTS, LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW = 8, 4, 1024, 16
 LM_PRUNE, LM_BLOCK = 4, 32          # what launch.serve --kv-prune 4 sets
@@ -305,6 +338,24 @@ LM_MB_REQUESTS, LM_MB_PROMPT, LM_MB_NEW = 8, (40, 121), 24
 LONG_B, LONG_SLOTS, LONG_BLOCK, LONG_PRUNE = 4, 32_768, 512, 16
 LONG_STEPS = 8
 LONG_TIMED_STEPS = 10
+# -- the lm_families phase: (arch, config changes), full width; the cuts in
+# depth are arctic-480b's (1 of 35 layers: 128 experts of 3 x 7168 x 4864
+# bf16 weights each, 28 GB) and llava-next-34b's (8 of 60 layers) --
+FAMILY_SEED = 0
+FAMILIES = (
+    ("deepseek_moe_16b", dict(kv_cache_int8=True, kv_block_prune=LM_PRUNE,
+                              kv_block_size=LM_BLOCK)),
+    ("arctic_480b", dict(n_layers=1, kv_cache_int8=True,
+                         kv_block_prune=LM_PRUNE, kv_block_size=LM_BLOCK)),
+    ("llava_next_34b", dict(n_layers=8, kv_block_prune=LM_PRUNE,
+                            kv_block_size=LM_BLOCK)),
+    ("h2o_danube_1_8b", dict(kv_cache_int8=True)),
+    ("recurrentgemma_2b", {}),
+    ("mamba2_780m", {}),
+    ("seamless_m4t_large_v2", {}),
+)
+# h2o-danube's 4,096-slot ring: positions 4,090-4,100 cross its wrap
+RING_POS0, RING_STEPS = 4090, 11
 # The kernel against its plain version on the same bf16 inputs: both sides
 # accumulate in float32 and round the output once to bf16, so they may differ
 # by one bf16 ulp of a value, at most 2**-7 of the largest |output|. The limit
@@ -315,7 +366,7 @@ LONG_TIMED_STEPS = 10
 KV_RTOL = 2.0 ** -6
 # End to end, both backends compute in bf16 and differ only where the
 # attention output rounds, but a one-ulp difference in one layer grows
-# through 36 layers of a random-init network (and through the caches the
+# through the layers of a random-init network (and through the caches the
 # steps write): on an H100 the two backends' logits come out 0.08 (server) to
 # 0.18 (long context) apart at |logit| < 5 (PERF.md). The kernel's own
 # faults are caught per call (KV_RTOL); this limit bounds the drift of the
@@ -348,6 +399,28 @@ def phase(name: str):
     print(f"[{name}] start", flush=True)
     yield
     print(f"[{name}] ok ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def side_by_side(fn, other):
+    """``fn()`` here while ``other()`` runs on a second thread -> (both
+    results). For the two engines' host-bound builds and compactions, whose
+    numpy sorts and copies release the GIL; nothing is timed across them."""
+    out: dict = {}
+
+    def run():
+        try:
+            out["value"] = other()
+        except BaseException as e:  # re-raised on this thread
+            out["error"] = e
+    thread = threading.Thread(target=run)
+    thread.start()
+    try:
+        value = fn()
+    finally:
+        thread.join()
+    if "error" in out:
+        raise out["error"]
+    return value, out["value"]
 
 
 def nvidia_smi_line() -> str:
@@ -1758,13 +1831,13 @@ def compact_phase(eng, eng_plain, queries, srv, dead, live):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before_bytes = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    id_map = srv.compact()
-    compact_s = time.perf_counter() - t0
+    def timed(fn):
+        t0 = time.perf_counter()
+        return fn(), time.perf_counter() - t0
+    # the plain engine compacts on a second thread beside the engine
+    (id_map, compact_s), (plain_map, plain_s) = side_by_side(
+        lambda: timed(srv.compact), lambda: timed(eng_plain.compact))
     peak = torch.cuda.max_memory_allocated()
-    t0 = time.perf_counter()
-    plain_map = eng_plain.compact()
-    plain_s = time.perf_counter() - t0
     check(np.array_equal(id_map, plain_map), "compact: id maps differ")
     check(eng.version == eng_plain.version == 1, "compact: version != 1")
     check(np.array_equal(np.nonzero(id_map < 0)[0], np.sort(dead)),
@@ -1777,10 +1850,11 @@ def compact_phase(eng, eng_plain, queries, srv, dead, live):
           f"compact: {after_bytes} bytes allocated after, {before_bytes} "
           f"before — a replaced version is still on the card")
     print(f"  compact: {compact_s:.1f} s (engine, through the server), "
-          f"{plain_s:.1f} s (plain engine); build seconds "
+          f"{plain_s:.1f} s (plain engine), side by side; build seconds "
           + ", ".join(f"{k} {v:.1f}" for k, v in eng.build_seconds.items())
           + f"; device memory {before_bytes / 1e9:.2f} GB before, peak "
-          f"{peak / 1e9:.2f} GB during, {after_bytes / 1e9:.2f} GB after",
+          f"{peak / 1e9:.2f} GB during both, {after_bytes / 1e9:.2f} GB "
+          f"after",
           flush=True)
     check(srv.submit(everything).result() == live,
           "count after compaction != live rows")
@@ -1805,17 +1879,20 @@ def lm_requests(cfg, seed: int, n: int, prompt: tuple[int, int], max_new: int,
     return reqs
 
 
-def lm_server(model, params, reqs, logits=None, steps=None):
+def lm_server(model, params, reqs, logits=None, steps=None, prepare=None):
     """Serve ``reqs`` through ``BatchServer(slots=LM_SLOTS,
     max_len=LM_MAX_LEN)``; with ``logits`` (a dict), record the logits row
     of every generated token per request id; with ``steps`` (a list), record
-    each step's (tokens, positions, generating slots, their logits rows)
-    -> (done, steps, seconds)."""
+    each step's (tokens, positions, generating slots, their logits rows);
+    ``prepare(cache)`` fills the server's fresh cache first (an
+    encoder-decoder's cross cache) -> (done, steps, seconds)."""
     from repro_torch.kernels import ops
     from repro_torch.serve import BatchServer, admission_query
 
     cfg = model.cfg
     srv = BatchServer(model, params, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    if prepare is not None:
+        prepare(srv.cache)
     if logits is not None or steps is not None:
         step = srv.step_fn
 
@@ -1851,28 +1928,33 @@ def lm_server(model, params, reqs, logits=None, steps=None):
     return done, n_steps, seconds
 
 
-def replay(model, params, steps, fault=None, stop=None) -> list:
+def replay(model, params, steps, fault=None, stop=None, prepare=None) -> list:
     """Teacher forcing: feed the recorded steps' tokens and positions through
     ``model``'s serve step on a fresh server cache (what ``BatchServer``
-    starts from) -> each step's logits rows of the generating slots.
-    ``fault`` alters every call of ``ops.kv_visit_attention`` (a planted
-    fault); ``stop(rows)`` True ends the replay early."""
+    starts from, ``prepare``d as the server's was) -> each step's logits
+    rows of the generating slots. ``fault`` alters every call of
+    ``ops.kv_visit_attention`` (a planted fault); ``stop(rows)`` True ends
+    the replay early."""
     from repro_torch.kernels import ops
     from repro_torch.serve.serve_step import make_serve_step
 
     cache = model.init_cache(LM_SLOTS, LM_MAX_LEN, model.dtype)
+    if prepare is not None:
+        prepare(cache)
     step = make_serve_step(model)
     vocab = model.cfg.vocab_size
     op, rows = ops.kv_visit_attention, []
     if fault is not None:
         ops.kv_visit_attention = lambda *a, **kw: op(*fault(*a), **kw)
     try:
-        for toks, pos, gen, _ in steps:
-            out, cache = step(params, cache, torch.as_tensor(toks, device="cuda"),
-                              torch.as_tensor(pos, device="cuda"))
-            rows.append(out[gen, 0, :vocab].float().cpu().numpy())
-            if stop is not None and stop(rows):
-                break
+        with torch.inference_mode():   # as BatchServer.serve steps
+            for toks, pos, gen, _ in steps:
+                out, cache = step(params, cache,
+                                  torch.as_tensor(toks, device="cuda"),
+                                  torch.as_tensor(pos, device="cuda"))
+                rows.append(out[gen, 0, :vocab].float().cpu().numpy())
+                if stop is not None and stop(rows):
+                    break
     finally:
         ops.kv_visit_attention = op
     return rows
@@ -1909,11 +1991,12 @@ def rejections(r: dict) -> list[str]:
     return out
 
 
-def teacher_forced_check(label, plain, params, steps) -> tuple[dict, list]:
+def teacher_forced_check(label, plain, params, steps,
+                         prepare=None) -> tuple[dict, list]:
     """Replay the kernel server's token stream on the plain backend: logits
     within LOGIT_ATOL at every generated token, greedy tokens equal at every
     decisive step -> (the reading, the plain logits rows)."""
-    rows_p = replay(plain, params, steps)
+    rows_p = replay(plain, params, steps, prepare=prepare)
     r = token_reading([s[3] for s in steps], rows_p)
     faults = rejections(r)
     check(not faults, f"{label}: " + "; ".join(faults))
@@ -2092,11 +2175,13 @@ def plain_shadow(stats):
     op = ops.kv_visit_attention
     stats.update(max_pos=-1, multi=0, keys=-1, widest=None)
 
-    def checked(q, k_blocks, v_blocks, block_ids, pos, *, backend="auto"):
-        out = op(q, k_blocks, v_blocks, block_ids, pos, backend=backend)
+    def checked(q, k_blocks, v_blocks, block_ids, pos, k_scale=None,
+                v_scale=None, *, backend="auto"):
+        out = op(q, k_blocks, v_blocks, block_ids, pos, k_scale, v_scale,
+                 backend=backend)
         if backend == "auto":
             err, scale = kv_err(out, ref.kv_visit_attention_ref(
-                q, k_blocks, v_blocks, block_ids, pos))
+                q, k_blocks, v_blocks, block_ids, pos, k_scale, v_scale))
             check(err <= KV_RTOL * scale,
                   f"kv_visit_attention call {stats['calls']}: {err} from its "
                   f"plain version > {KV_RTOL} x max |plain| {scale}")
@@ -2113,7 +2198,8 @@ def plain_shadow(stats):
             if keys > stats["keys"]:
                 stats["keys"] = keys
                 stats["widest"] = (q.clone(), k_blocks, v_blocks,
-                                   block_ids.clone(), pos.clone())
+                                   block_ids.clone(), pos.clone(), k_scale,
+                                   v_scale)
         return out
     ops.kv_visit_attention = checked
     try:
@@ -2180,7 +2266,8 @@ def lm_long_part(params):
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
 
-    cfg = get_config(LM_ARCH).replace(kv_block_prune=LONG_PRUNE,
+    cfg = get_config(LM_ARCH).replace(n_layers=LM_LAYERS,
+                                      kv_block_prune=LONG_PRUNE,
                                       kv_block_size=LONG_BLOCK)
     model = build_model(cfg)
     plain = build_model(cfg, backend="torch")
@@ -2259,20 +2346,21 @@ def lm_long_part(params):
 def decode_call(model, params, cache, tok, pos) -> tuple:
     """One more decode step; the inputs of its layer-0 kv_visit_attention
     call, as the model passes them (int64 ids from the selection, the
-    strided views of the cache)."""
+    strided views of the cache; an int8 cache's scale views, else None)."""
     from repro_torch.kernels import ops
     op, calls = ops.kv_visit_attention, []
 
     def recording(*args, **kw):
-        calls.append(args)
+        calls.append((args, kw))
         return op(*args, **kw)
     ops.kv_visit_attention = recording
     try:
         model.decode_step(params, cache, tok, pos)
     finally:
         ops.kv_visit_attention = op
-    q, kb, vb, ids, p = calls[0]
-    return q.clone(), kb, vb, ids.clone(), p.clone()
+    (q, kb, vb, ids, p), kw = calls[0]
+    return (q.clone(), kb, vb, ids.clone(), p.clone(), kw.get("k_scale"),
+            kw.get("v_scale"))
 
 
 def device_kernels(fn, reps: int = TIMING_REPS,
@@ -2325,14 +2413,14 @@ def host_us(fn, calls: int = 100) -> float:
     return t / calls * 1e6
 
 
-def kv_visit_timing(q, kb, vb, ids, pos) -> dict:
+def kv_visit_timing(q, kb, vb, ids, pos, ks=None, vs=None) -> dict:
     """``kv_visit.kv_visit_attention`` on these inputs: the eager CUDA-event
     ms (``time_ms``), the device ms and device kernels per call
     (``device_kernels``) and the wrapper's host us per call."""
     from repro_torch.kernels import kv_visit
 
     def call():
-        return kv_visit.kv_visit_attention(q, kb, vb, ids, pos)
+        return kv_visit.kv_visit_attention(q, kb, vb, ids, pos, ks, vs)
     device_ms, per_call, names = device_kernels(call)
     return {"ms": time_ms(call), "device_ms": device_ms,
             "kernels_per_call": per_call, "kernel_names": names,
@@ -2405,7 +2493,7 @@ def kv_visit_row(cfg, cache, call, server_call) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import kv_visit, ref
 
-    q, kb, vb, ids, pos = call
+    q, kb, vb, ids, pos = call[:5]
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     g = cfg.n_heads // kv
     nb = LONG_SLOTS // LONG_BLOCK
@@ -2476,7 +2564,7 @@ def kv_visit_row(cfg, cache, call, server_call) -> dict:
           f"library_ms={row['library_ms']:.4f} (SDPA over all {LONG_SLOTS} "
           f"slots; max |SDPA - kernel| {lib_err:.4g})", flush=True)
 
-    q, kb, vb, ids, pos = server_call
+    q, kb, vb, ids, pos = server_call[:5]
     got = kv_visit.kv_visit_attention(q, kb, vb, ids, pos)
     err, scale = kv_err(got, ref.kv_visit_attention_ref(q, kb, vb, ids, pos))
     check(err <= KV_RTOL * scale, f"server shape: {err} from plain > "
@@ -2496,15 +2584,16 @@ def kv_visit_row(cfg, cache, call, server_call) -> dict:
 
 
 def lm_phase() -> dict:
-    """The LM decode-serving path at Qwen3-8B's full width and depth ->
-    the kernel table's row of kv_visit_attention."""
+    """The LM decode-serving path at Qwen3-8B's full width, LM_LAYERS deep
+    -> the kernel table's row of kv_visit_attention."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.params import count_params
     from repro_torch.models.registry import build_model
 
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(LM_ARCH).replace(kv_block_prune=LM_PRUNE,
+    cfg = get_config(LM_ARCH).replace(n_layers=LM_LAYERS,
+                                      kv_block_prune=LM_PRUNE,
                                       kv_block_size=LM_BLOCK)
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -2538,6 +2627,451 @@ def lm_phase() -> dict:
     return row
 
 
+def family_prepare(model, params):
+    """An encoder-decoder's cross cache (``fill_cross_cache``: stub frame
+    embeddings (LM_SLOTS, LM_MAX_LEN // 4, d) from a generator, seed
+    FAMILY_SEED, encoded once per fill) as a function of a fresh cache, for
+    the server and each replay; None for a decoder-only model."""
+    from repro_torch.models.encdec import EncDecLM
+    if not isinstance(model, EncDecLM):
+        return None
+    gen = torch.Generator(device="cuda").manual_seed(FAMILY_SEED)
+    frames = torch.randn((LM_SLOTS, LM_MAX_LEN // 4, model.cfg.d_model),
+                         generator=gen, device="cuda", dtype=model.dtype)
+
+    def prepare(cache):
+        model.fill_cross_cache(params, cache, frames)
+    return prepare
+
+
+@contextlib.contextmanager
+def routing(calls: "RecordedRoutes", forced: dict | None = None):
+    """MoE routing, recorded or imposed. Without ``forced``: every
+    ``moe.route`` call's expert ids are appended to ``calls``, and the gap
+    between its k-th and (k+1)-th router probability to ``calls.gaps``.
+    With ``forced`` (a dict): the calls take,
+    in order, the recorded ids instead of their own (their gates from their
+    own probabilities at those ids, normalised as ``route`` does);
+    ``forced["flips"]`` gets, per call, the count on the device of the ids
+    its own top-k would have chosen otherwise, and ``["decisions"]`` the
+    number of ids. Teacher forcing of the routing, as the replays force the
+    tokens: a kernel output one bf16 ulp from the plain one can swap a
+    near-tied k-th and (k+1)-th expert, which moves the layer's output by a
+    whole expert's share, so the backends are compared on one routing."""
+    from repro_torch.models import moe
+    route = moe.route
+    order = iter(calls)
+
+    def recording(p, x, cfg):
+        probs, gates, idx = route(p, x, cfg)
+        if forced is None:
+            calls.append(idx)
+            top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1).values
+            calls.gaps.append(top[..., -2] - top[..., -1])
+            return probs, gates, idx
+        want = next(order)
+        forced.setdefault("flips", []).append((idx != want).sum())
+        forced["decisions"] = forced.get("decisions", 0) + idx.numel()
+        gates = torch.take_along_dim(probs, want, dim=-1)
+        return probs, gates / gates.sum(-1, keepdim=True).clamp(min=1e-9), want
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+class RecordedRoutes(list):
+    """``routing``'s record: the expert ids of each ``moe.route`` call, in
+    order, and ``gaps``, each call's k-th minus (k+1)-th probability."""
+
+    def __init__(self, items=()):
+        super().__init__(items)
+        self.gaps: list = []
+
+
+def routing_reading(gaps: list, forced: dict, per_step: int) -> str:
+    """The imposed routing's flips per MoE layer (``per_step`` calls, layer
+    by layer, in each step) beside the recorded run's k-th minus (k+1)-th
+    router probability ``gaps``."""
+    flips = torch.stack(forced["flips"]).view(-1, per_step).sum(0).tolist()
+    gaps = torch.cat([g.flatten() for g in gaps]).float()
+    total = sum(flips)
+    return (f"routing imposed: {total} of {forced['decisions']} expert "
+            f"choices its own top-k would have made otherwise, by MoE layer "
+            f"{flips}; served k-th minus (k+1)-th router probability: median "
+            f"{float(gaps.median()):.3g}, {float((gaps < 1e-3).float().mean()):.3f}"
+            f" of them below 1e-3")
+
+
+def kv_kernel_name(cfg) -> str:
+    """The launch counter of a pruned config's kv_visit_attention instance."""
+    return "kv_visit_attention[int8]" if cfg.kv_cache_int8 \
+        else "kv_visit_attention"
+
+
+def ring_wrap(model, plain, params) -> None:
+    """A sliding-window decode across the ring's wrap: a cache of ``window``
+    slots (its codes and scales from a generator, seed 1, as an earlier
+    request would have left them), positions RING_POS0 .. RING_POS0 +
+    RING_STEPS - 1 on every slot, teacher-forced on both backends: each step
+    writes ring slot pos % window and no other, logits finite and within
+    LOGIT_ATOL of the plain backend's."""
+    cfg = model.cfg
+    w = cfg.sliding_window
+    cache = model.init_cache(LM_SLOTS, w + LM_BLOCK)
+    check(cache["k"].shape[2] == w, f"ring of {cache['k'].shape[2]} slots, "
+                                    f"window {w}")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for name in ("k", "v"):
+        cache[name].random_(-127, 128, generator=gen)
+        cache[f"{name}_scale"].uniform_(0.0, 0.05, generator=gen)
+    cache_p = {k: v.clone() for k, v in cache.items()}
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (RING_STEPS, LM_SLOTS, 1)), device="cuda")
+    worst, slots = 0.0, []
+    for t in range(RING_STEPS):
+        pos = torch.full((LM_SLOTS,), RING_POS0 + t, device="cuda")
+        before = cache["k"].clone()
+        lk, _ = model.decode_step(params, cache, toks[t], pos)
+        lp, _ = plain.decode_step(params, cache_p, toks[t], pos)
+        check(bool(torch.isfinite(lk).all()), f"ring step {t}: logits not "
+                                              f"finite")
+        worst = max(worst, float((lk - lp).abs().max()))
+        changed = (cache["k"] != before).any(dim=(0, 1, 3, 4))
+        written = torch.nonzero(changed).flatten().tolist()
+        check(written == [(RING_POS0 + t) % w],
+              f"ring step {t} (pos {RING_POS0 + t}) wrote slots {written}")
+        slots.append(written[0])
+    check(worst <= LOGIT_ATOL, f"ring wrap: logits differ by {worst}")
+    print(f"  {cfg.name} ring wrap: positions {RING_POS0}-"
+          f"{RING_POS0 + RING_STEPS - 1} wrote ring slots {slots} of {w}; "
+          f"max |logit - plain| {worst:.4g}", flush=True)
+
+
+def long_cache_int8(model, start: torch.Tensor) -> dict:
+    """A long-context int8 cache: keys and values from a generator (seed 1,
+    bf16) in the slots before each row's start position, zeros after,
+    quantized as the decode quantizes (``quantize_kv``); zone maps over the
+    written keys."""
+    from repro_torch import numerics
+    from repro_torch.models.layers import quantize_kv
+    cfg = model.cfg
+    cache = model.init_cache(LONG_B, LONG_SLOTS)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    written = (torch.arange(LONG_SLOTS, device="cuda")[None, :]
+               < start[:, None])                                  # (B, S)
+    nb = LONG_SLOTS // LONG_BLOCK
+    big = numerics.finite_max(torch.bfloat16)
+    w5 = written.view(LONG_B, nb, LONG_BLOCK, 1, 1)
+    shape = cache["k"].shape[1:]
+    for layer in range(cfg.n_layers):
+        for name in ("k", "v"):
+            x = torch.randn(shape, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) * written[:, :, None, None]
+            cache[name][layer], cache[f"{name}_scale"][layer] = quantize_kv(x)
+            if name == "k":
+                kb = x.view(LONG_B, nb, LONG_BLOCK, cfg.n_kv_heads, -1).float()
+                cache["kmin"][layer] = torch.where(w5, kb, big).amin(dim=2)
+                cache["kmax"][layer] = torch.where(w5, kb, -big).amax(dim=2)
+            del x
+    return cache
+
+
+def family_long_part(cfg, params, server_call) -> tuple[dict, dict]:
+    """deepseek-moe-16b's long-context int8 decode: B = LONG_B at LONG_SLOTS
+    slots, LONG_PRUNE of 64 blocks of LONG_BLOCK keys, LONG_STEPS steps
+    teacher-forced on both backends, every kernel call held against its
+    plain version; warm step times pruned and on the full int8 cache ->
+    (the kernel row of the int8 instance, read also on ``server_call``, the
+    launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+
+    lcfg = cfg.replace(kv_block_prune=LONG_PRUNE, kv_block_size=LONG_BLOCK)
+    model = build_model(lcfg)
+    plain = build_model(lcfg, backend="torch")
+    start = torch.tensor([LONG_SLOTS - 1 - LONG_STEPS - 64 * b
+                          for b in range(LONG_B)], device="cuda")
+    t0 = time.perf_counter()
+    cache = long_cache_int8(model, start)
+    cache_p = {k: v.clone() for k, v in cache.items()}
+    torch.cuda.synchronize()
+    kv_gb = sum(cache[k].nbytes for k in ("k", "v", "k_scale", "v_scale"))
+    print(f"  {lcfg.name} long context: int8 K/V + scales {kv_gb / 1e9:.2f} "
+          f"GB per copy (two copies), filled in {time.perf_counter() - t0:.1f}"
+          f" s; positions {start.tolist()}; device memory "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, lcfg.vocab_size, (LONG_STEPS, LONG_B, 1)), device="cuda")
+    worst = 0.0
+    shadow = {"calls": 0, "err": 0.0, "rel": 0.0}
+    forced: dict = {}
+    gaps: list = []
+    ops.reset_kernel_launches()
+    for t in range(LONG_STEPS):
+        vk, vp, routes = [], [], RecordedRoutes()
+        with plain_shadow(shadow), routing(routes):
+            lk, _ = model.decode_step(params, cache, toks[t], start + t,
+                                      visits=vk)
+        with routing(routes, forced):
+            lp, _ = plain.decode_step(params, cache_p, toks[t], start + t,
+                                      visits=vp)
+        worst = max(worst, float((lk - lp).abs().max()))
+        gaps += routes.gaps
+        check(torch.equal(vk[0][0], vp[0][0]),
+              f"step {t}: layer-0 visit lists differ between the backends")
+    launches = ops.kernel_launches()
+    check(shadow["calls"] == LONG_STEPS * lcfg.n_layers
+          == launches.get("kv_visit_attention[int8]", 0),
+          f"{shadow['calls']} int8 kernel calls held against the plain "
+          f"version, launches {launches}")
+    check(worst <= LOGIT_ATOL,
+          f"long-context int8 logits differ by {worst} > {LOGIT_ATOL}")
+    print(f"  {LONG_STEPS} teacher-forced steps: each of {shadow['calls']} "
+          f"kv_visit_attention[int8] calls within {shadow['err']:.4g} of its "
+          f"plain version ({shadow['rel']:.4g} of its max |plain|; limit "
+          f"{KV_RTOL:.4g}); max |logit kernel - plain| {worst:.4f} (limit "
+          f"{LOGIT_ATOL}); layer-0 visit lists equal; on the plain steps "
+          f"{routing_reading(gaps, forced, len(routes))}", flush=True)
+    del cache_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    pos = start + LONG_STEPS - 1
+    tok = toks[-1]
+    for name, m in (("pruned", model),
+                    ("full", build_model(lcfg.replace(kv_block_prune=0)))):
+        for _ in range(2):
+            m.decode_step(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LONG_TIMED_STEPS):
+            m.decode_step(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / LONG_TIMED_STEPS * 1e3
+        print(f"  warm int8 decode step, B={LONG_B} at {LONG_SLOTS} slots, "
+              f"kv_block_prune={m.cfg.kv_block_prune}: {ms:.2f} ms "
+              f"({LONG_B * 1e3 / ms:.1f} tokens/s)", flush=True)
+    call = decode_call(model, params, cache, tok, pos)
+    return kv_int8_row(lcfg, cache, call, server_call), launches
+
+
+def kv_int8_bound(q, ids, pos, bs: int) -> tuple[float, str, int]:
+    """Bound of one int8 call: the valid keys' int8 K and V rows and their
+    two float32 scales read once, q, the ids and the output once; 4 * G *
+    hd flops per key for the attention and 2 * hd for the dequantization
+    -> (ms, by, keys)."""
+    _, _, g, hd = q.shape
+    first = ids.long() * bs
+    keys = int(((pos.long()[:, None, None] - first + 1).clamp(0, bs)
+                * (ids >= 0)).sum())
+    nbytes = keys * (2 * hd + 2 * 4) + 2 * q.numel() * q.element_size() \
+        + ids.numel() * ids.element_size()
+    return (*bound_ms(nbytes, (4.0 * g + 2.0) * hd * keys), keys)
+
+
+def kv_int8_row(cfg, cache, call, server_call) -> dict:
+    """Row 12b, the int8 instance at the long-context shape, on the inputs
+    of the last step's layer-0 call: against its plain version and the
+    bf16 instance on the dequantized cache, a planted fault;
+    its time beside the bf16 instance's at the same shape and the
+    gather-and-dequantize route's (gather the kept blocks and their scales,
+    dequantize to bf16, the bf16 instance over them: every gathered key
+    read, so not the same function, a yardstick of time only). Then the
+    same reading at the server shape: ``server_call``, the served call with
+    the most valid keys."""
+    from repro_torch.kernels import kv_visit, ref
+
+    q, kb, vb, ids, pos, ks, vs = call
+    b, kv, g, hd = q.shape
+    nb, bs = kb.shape[2], kb.shape[3]
+    got = kv_visit.kv_visit_attention(q, kb, vb, ids, pos, ks, vs)
+    want = ref.kv_visit_attention_ref(q, kb, vb, ids, pos, ks, vs)
+    err, scale = kv_err(got, want)
+    check(err <= KV_RTOL * scale, f"kv_visit_attention[int8] differs from "
+                                  f"plain by {err} > {KV_RTOL} x {scale}")
+    check(torch.equal(got, kv_visit.kv_visit_attention(q, kb, vb, ids, pos,
+                                                       ks, vs)),
+          "kv_visit_attention[int8] differs between identical calls")
+    dropped = ids.clone()
+    dropped[..., -1] = -1
+    f_err, _ = kv_err(kv_visit.kv_visit_attention(q, kb, vb, dropped, pos, ks,
+                                                  vs), want)
+    check(f_err > KV_RTOL * scale,
+          f"planted fault (last listed block dropped) passes: {f_err}")
+
+    def dequantized(name):
+        x = cache[name][0].to(q.dtype) * cache[f"{name}_scale"][0].to(q.dtype)
+        return x.view(b, nb, bs, kv, hd).permute(0, 3, 1, 2, 4)
+    kd, vd = dequantized("k"), dequantized("v")
+    # the same operands; the int8 instance plans two blocks per SM, the
+    # bf16 one one, so their merges run in another order
+    d16, _ = kv_err(got, kv_visit.kv_visit_attention(q, kd, vd, ids, pos))
+    check(d16 <= KV_RTOL * scale, f"the int8 instance differs from the bf16 "
+                                  f"instance on the dequantized cache by "
+                                  f"{d16}")
+    keep = ids.shape[-1]
+    local = torch.arange(keep, device="cuda").expand(b, kv, keep)
+    every = torch.full((b,), keep * bs - 1, device="cuda")
+
+    def gather_route():
+        sel = ids.clamp(min=0)[..., None, None]
+        kg = (torch.take_along_dim(kb, sel, 2).to(q.dtype)
+              * torch.take_along_dim(ks, sel, 2).to(q.dtype))
+        vg = (torch.take_along_dim(vb, sel, 2).to(q.dtype)
+              * torch.take_along_dim(vs, sel, 2).to(q.dtype))
+        return kv_visit.kv_visit_attention(q, kg, vg, local, every)
+    b_ms, by, keys = kv_int8_bound(q, ids, pos, bs)
+    t = kv_visit_timing(q, kb, vb, ids, pos, ks, vs)
+    t16 = kv_visit_timing(q, kd, vd, ids, pos)
+    check(t["kernels_per_call"] == 1,
+          f"kv_visit_attention[int8]: {t['kernels_per_call']} device kernels "
+          f"per call: {t['kernel_names']}")
+    row = {"name": "kv_visit_attention[int8]", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/kv_visit.cu",
+           "replaces": "src/repro/kernels/kv_visit.py:110", "launches": 0,
+           "max_abs_err": err, "ms": t["ms"], "device_ms": t["device_ms"],
+           "plain_ms": time_ms(lambda: ref.kv_visit_attention_ref(
+               q, kb, vb, ids, pos, ks, vs)),
+           "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+           "bf16_ms": t16["ms"], "bf16_device_ms": t16["device_ms"],
+           "gather_route_ms": time_ms(gather_route)}
+    print(f"  kv_visit_attention[int8], B={b} KV={kv} G={g} hd={hd}, {keep} "
+          f"of {nb} blocks of {bs} ({keys} valid keys): err={err} (max "
+          f"|plain| {scale:.4g}; planted fault {f_err:.4g}); {d16:.4g} from "
+          f"the bf16 instance on the dequantized cache; ms={t['ms']:.4f} "
+          f"device_ms={t['device_ms']:.4f} host_us={t['host_us']:.1f}; bf16 "
+          f"instance ms={t16['ms']:.4f} device_ms={t16['device_ms']:.4f}; "
+          f"gather-and-dequantize route ms={row['gather_route_ms']:.4f}; "
+          f"plain_ms={row['plain_ms']:.4f} bound_ms={b_ms:.4f} ({by}); no "
+          f"library call takes int8 K/V with scales", flush=True)
+
+    q, kb, vb, ids, pos, ks, vs = server_call
+    got = kv_visit.kv_visit_attention(q, kb, vb, ids, pos, ks, vs)
+    err, scale = kv_err(got, ref.kv_visit_attention_ref(q, kb, vb, ids, pos,
+                                                        ks, vs))
+    check(err <= KV_RTOL * scale, f"kv_visit_attention[int8] at the server "
+                                  f"shape: {err} from plain > {KV_RTOL} x "
+                                  f"{scale}")
+    s_ms, s_by, s_keys = kv_int8_bound(q, ids, pos, kb.shape[3])
+    ts = kv_visit_timing(q, kb, vb, ids, pos, ks, vs)
+    check(ts["kernels_per_call"] == 1,
+          f"server shape: {ts['kernels_per_call']} device kernels per call")
+    print(f"  kv_visit_attention[int8] at the server shape (B={q.shape[0]} "
+          f"KV={q.shape[1]} G={q.shape[2]}, {ids.shape[-1]} of {kb.shape[2]} "
+          f"blocks of {kb.shape[3]}, positions {pos.tolist()}, {s_keys} valid "
+          f"keys): err={err} ms={ts['ms']:.4f} device_ms="
+          f"{ts['device_ms']:.4f} host_us={ts['host_us']:.1f} "
+          f"bound_ms={s_ms:.5f} ({s_by})", flush=True)
+    return row
+
+
+def family_part(arch: str, changes: dict) -> dict:
+    """One model of the lm_families phase: random weights (seed FAMILY_SEED)
+    on the card, the multi-block request set served (every kernel call held
+    against its plain version) and replayed teacher-forced on the plain
+    backend; h2o-danube also decodes across its ring's wrap,
+    deepseek-moe-16b the long context -> its kernel launches (and the
+    int8 row)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import count_params, leaves
+    from repro_torch.models.registry import build_model
+
+    torch.cuda.reset_peak_memory_stats()
+    base = get_config(arch)
+    cfg = base.replace(**changes)
+    model = build_model(cfg)
+    plain = build_model(cfg, backend="torch")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(FAMILY_SEED))
+    torch.cuda.synchronize()
+    cut = "" if cfg.n_layers == base.n_layers else \
+        f" of {base.n_layers}, cut"
+    print(f"  {cfg.name}: family {cfg.family}, {cfg.n_layers} layers{cut}, "
+          f"d_model {cfg.d_model}; {count_params(params) / 1e9:.3f} B "
+          f"parameters, {sum(t.nbytes for t in leaves(params)) / 1e9:.2f} GB; "
+          f"kv_cache_int8={cfg.kv_cache_int8} kv_block_prune="
+          f"{cfg.kv_block_prune}; initialised in {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    prepare = family_prepare(model, params)
+    reqs = lm_requests(cfg, LM_SEED + 1, LM_MB_REQUESTS, LM_MB_PROMPT,
+                       LM_MB_NEW, admit_all=True)
+    tf_steps, routes = [], RecordedRoutes()
+    shadow = {"calls": 0, "err": 0.0, "rel": 0.0}
+    moe_family = cfg.family == "moe"
+    ops.reset_kernel_launches()
+    with plain_shadow(shadow), (routing(routes) if moe_family
+                                else contextlib.nullcontext()):
+        done, steps, seconds = lm_server(model, params, reqs, steps=tf_steps,
+                                         prepare=prepare)
+    launches = ops.kernel_launches()
+    check(len(done) == LM_MB_REQUESTS, f"{cfg.name}: not all served")
+    calls = steps * cfg.n_layers if cfg.kv_block_prune else 0
+    check(shadow["calls"] == calls
+          and launches.get(kv_kernel_name(cfg), 0) == calls,
+          f"{cfg.name}: {shadow['calls']} kernel calls held against the plain "
+          f"version, {steps} steps, launches {launches}")
+    tokens = sum(r.output.size for r in done)
+    kernel = (f"each of {shadow['calls']} {kv_kernel_name(cfg)} calls within "
+              f"{shadow['err']:.4g} ({shadow['rel']:.4g} of its max |plain|) "
+              f"of its plain version" if calls else "no kernel on this path")
+    print(f"  {cfg.name}: {len(done)} requests (prompts "
+          f"{LM_MB_PROMPT[0]}-{LM_MB_PROMPT[1] - 1}, {LM_MB_NEW} new), "
+          f"{tokens} tokens in {steps} steps, {seconds:.2f} s "
+          f"({seconds / steps * 1e3:.1f} ms/step, {tokens / seconds:.1f} "
+          f"generated tokens/s); {kernel}; kernel launches {launches}",
+          flush=True)
+    forced: dict = {}
+    with (routing(routes, forced) if moe_family
+          else contextlib.nullcontext()):
+        reading, _ = teacher_forced_check(cfg.name, plain, params, tf_steps,
+                                          prepare)
+    flips = ("; on the replay " + routing_reading(
+        routes.gaps, forced, len(routes) // steps) if moe_family else "")
+    print(f"  {cfg.name}: {reading['decisive'] - reading['differ']} of "
+          f"{reading['decisive']} decisive tokens agree ({reading['tokens']} "
+          f"generated){flips}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del tf_steps, routes
+    out = {"launches": launches, "row": None}
+    if cfg.sliding_window:
+        ring_wrap(model, plain, params)
+    if arch == FAMILIES[0][0]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["row"], long_launches = family_long_part(cfg, params,
+                                                     shadow["widest"])
+        out["launches"] = {k: launches.get(k, 0) + long_launches.get(k, 0)
+                           for k in {*launches, *long_launches}}
+    del params, model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_families_phase(rows: list) -> None:
+    """Every family's decode-serving path, one model at a time, each freed
+    before the next; the int8 kernel row appended to ``rows`` and the
+    kernels' launches on this phase's main paths added to theirs."""
+    launches: dict[str, int] = {}
+    int8_row = None
+    for arch, changes in FAMILIES:
+        out = family_part(arch, changes)
+        for k, v in out["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        int8_row = out["row"] or int8_row
+    print(f"  kernel launches on the lm_families paths: {launches}",
+          flush=True)
+    check(launches.get("kv_visit_attention[int8]", 0) > 0,
+          "kv_visit_attention[int8] was not launched on the lm_families path")
+    int8_row["launches"] = launches["kv_visit_attention[int8]"]
+    for r in rows:
+        if r["name"] == "kv_visit_attention":
+            r["launches"] += launches.get("kv_visit_attention", 0)
+    rows.append(int8_row)
+
+
 def kv_build_check() -> None:
     """kv_visit.cu's instances: 0 spills in each (``ptxas -v``, from the
     build log kept beside the library), the keys per tile the wrapper plans
@@ -2546,20 +3080,24 @@ def kv_build_check() -> None:
     from repro_torch.kernels import _build, kv_visit
     log = _build.BUILD_LOG.get("kv_visit.cu")
     check(log is not None, "kv_visit.cu: no build log (ptxas -v) to read")
-    n = len(kv_visit.DTYPES) * len(kv_visit.HEAD_DIMS)
+    n = 2 * len(kv_visit.DTYPES) * len(kv_visit.HEAD_DIMS)   # and int8 K/V
     spills = [int(k) for k in re.findall(r"(\d+) bytes spill stores", log)]
     check(len(spills) == n and not any(spills),
           f"kv_visit.cu spills (ptxas -v, {n} instances): {spills}")
     smem = []
-    for dt in kv_visit.DTYPES:
-        for hd in kv_visit.HEAD_DIMS:
-            tile, nbytes = kv_visit.instance_shape(hd, dt)
-            check(tile == kv_visit.tile_keys(hd, dt),
-                  f"kv_visit {dt} hd {hd}: the kernel's tile is {tile} keys, "
-                  f"the wrapper plans with {kv_visit.tile_keys(hd, dt)}")
-            smem.append(f"{str(dt)[6:]} hd {hd}: {nbytes}")
-    print(f"  kv_visit.cu: {n} instances, 0 bytes spill stores; dynamic "
-          f"shared memory per block (B, as the library reports it): "
+    for int8 in (False, True):
+        for dt in kv_visit.DTYPES:
+            for hd in kv_visit.HEAD_DIMS:
+                tile, nbytes = kv_visit.instance_shape(hd, dt, int8)
+                check(tile == kv_visit.tile_keys(hd, dt),
+                      f"kv_visit {dt} hd {hd} int8 {int8}: the kernel's tile "
+                      f"is {tile} keys, the wrapper plans with "
+                      f"{kv_visit.tile_keys(hd, dt)}")
+                smem.append(f"{str(dt)[6:]}{' int8 K/V' if int8 else ''} hd "
+                            f"{hd}: {tile} keys, {nbytes}")
+    print(f"  kv_visit.cu: {n} instances, 0 bytes spill stores; keys per "
+          f"tile and dynamic shared memory per block (B, as the library "
+          f"reports them): "
           f"{', '.join(smem)}", flush=True)
 
 
@@ -2907,6 +3445,7 @@ def columnar_batch_checks(eng, eng_plain, queries) -> None:
     from repro_torch.kernels import ops
     batch = QueryBatch.from_queries(queries[:COLUMNAR_BATCH])
     cols = eng.dataset.cols
+    want_ids = [numpy_scan_ids(cols, batch[i]) for i in range(ORACLE_SAMPLE)]
     calls = (("mask_batch", {}), ("mask_batch_partial", {}),
              ("count_batch", {}), ("count_batch", {"partial": True}))
     for name, kw in calls:
@@ -2923,12 +3462,11 @@ def columnar_batch_checks(eng, eng_plain, queries) -> None:
         want = getattr(eng_plain.columnar, name)(batch, **kw)
         if name == "count_batch":
             equal = got == want
-            sample = all(got[i] == numpy_scan_ids(cols, batch[i]).size
+            sample = all(got[i] == want_ids[i].size
                          for i in range(ORACLE_SAMPLE))
         else:
             equal = got.shape == want.shape and np.array_equal(got, want)
-            sample = all(np.array_equal(np.nonzero(got[i])[0],
-                                        numpy_scan_ids(cols, batch[i]))
+            sample = all(np.array_equal(np.nonzero(got[i])[0], want_ids[i])
                          for i in range(ORACLE_SAMPLE))
         print(f"  columnar {label:<19} B={len(batch)}: {ms:.3f} host ms; "
               f"counts {count_label(counts)}; uncounted syncs "
@@ -3002,9 +3540,11 @@ def main() -> int:
 
     with phase("data"):
         ds = gmrqb.build(N, seed=SEED)
-        eng = MDRQEngine(ds, tile_n=TILE_N, rowscan=True)
-        eng_plain = MDRQEngine(ds, tile_n=TILE_N, rowscan=True,
-                               backend="torch")
+        # the plain engine builds on a second thread beside the engine
+        eng, eng_plain = side_by_side(
+            lambda: MDRQEngine(ds, tile_n=TILE_N, rowscan=True),
+            lambda: MDRQEngine(ds, tile_n=TILE_N, rowscan=True,
+                               backend="torch"))
         queries = [q for _, q in gmrqb.mixed_workload(ds, 128, seed=SEED)]
         oracle = Oracle(eng, ds.cols, queries)
         print(f"  GMRQB n={ds.n} m={ds.m}; device array "
@@ -3013,7 +3553,7 @@ def main() -> int:
               flush=True)
         for name, secs in (("engine", eng.build_seconds),
                            ("plain engine", eng_plain.build_seconds)):
-            print(f"  {name} build seconds: " + ", ".join(
+            print(f"  {name} build seconds (side by side): " + ", ".join(
                 f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
         print(f"  device memory allocated: "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
@@ -3105,9 +3645,9 @@ def main() -> int:
 
     with phase("examples"):
         columnar_batch_checks(eng, eng_plain, queries)
-        # The examples and the LM phase need the card's memory: free both
-        # engines first.
-        del eng, eng_plain, oracle
+        # The examples and the LM phases need the card's memory: free both
+        # engines first (the delta phase's server holds the engine too).
+        del eng, eng_plain, oracle, ingest
         gc.collect()
         torch.cuda.empty_cache()
         print(f"  engines freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
@@ -3116,6 +3656,9 @@ def main() -> int:
 
     with phase("lm"):
         rows.append(lm_phase())
+
+    with phase("lm_families"):
+        lm_families_phase(rows)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

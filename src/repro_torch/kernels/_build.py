@@ -49,11 +49,9 @@ _SIGNATURES = {
                                      _P, _I, _P),
     "mdrq_multi_va_filter": (_P, _LL, _I, _I, _P, _P, _I, _P, _I, _I, _P),
     "mdrq_range_scan_rows": (_P, _LL, _I, _P, _P, _P, _I, _P),
-    "mdrq_kv_visit_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL,
-                                _LL, _LL, _LL, _LL, _LL, _LL, _LL, _F, _F, _I,
-                                _P),
-    "mdrq_kv_visit_shape": (_I, _I, _PI, _PI),
+    "mdrq_kv_visit_attention": (_P,) * 10 + (_I,) * 14 + (_LL,) * 16
+                               + (_F, _F, _I, _P),
+    "mdrq_kv_visit_shape": (_I, _I, _I, _PI, _PI),
 }
 
 # Kernel launches per wrapper name since the last ``reset_launches``.

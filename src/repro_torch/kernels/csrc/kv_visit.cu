@@ -29,8 +29,10 @@
 //   contiguous runs of `tps` tiles, one thread block each. The wrapper's
 //   split_plan fills one wave of one block per SM (4 splits of 32 tiles at
 //   B = 4, KV = 8, 16 visits of 512 keys: 128 blocks of 2,048 keys); two
-//   blocks fit an SM, but on an H100 a block streams faster alone. A list
-//   of at most 4 tiles is one block (no merge).
+//   blocks fit an SM, but on an H100 a block streams faster alone. The int8
+//   instance plans two per SM where they fit (its warps dequantize each
+//   tile; a second block's warps issue while the first's wait). A list of
+//   at most 4 tiles is one block (no merge).
 // - A ring of STAGES tiles in shared memory, filled by cp.async two tiles
 //   ahead of the compute (commit groups, one __syncthreads per tile): at
 //   the shape above a block keeps 64 KB of K/V loads in flight. Only the
@@ -67,9 +69,24 @@
 //   distributed shared memory needs no scratch, but on an H100 clusters of
 //   4 to 8 of these blocks could not all be resident at once (a second
 //   wave), so its split count would have to follow the card's GPC layout.
+// - An int8 cache (the model's kv_cache_int8) has its own instance of the
+//   template: the ring carries int8 K/V rows (half the bytes of bf16 rows,
+//   in 16-byte pieces: hd >= 32 is two or more per row) and each key's
+//   float32 K and V scales (4-byte cp.async: a scale sits KV * 4 bytes
+//   from the next key's in the cache's (B, S, KV, 1) layout, so no 16-byte
+//   alignment holds). Before a warp reads a tile, it dequantizes the rows
+//   it alone will read, 16 codes a lane at a time, into a tile of q's type
+//   in shared memory laid out as the other instance's slot (no block
+//   barrier: a row is written and read by one warp), to exactly the plain
+//   version's operands: bf16(code * bf16(scale)) for bf16 (the product of
+//   a 7-bit integer and an 8-bit mantissa is exact in float32, so one
+//   rounding, as torch's bf16 multiply), code * scale in float32. The
+//   compute is the other instance's, unchanged.
 #include "common.cuh"
 
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -102,6 +119,9 @@ struct Args {
   int n_split;    // splits per (b, h)
   int bkv;        // B * KV
   float scale, neg;
+  const void* ksc;  // int8 instance: (B, KV, nb, bs, 1) float32 scales
+  const void* vsc;
+  Strides kss, vss;
 };
 
 // Keys per tile and the ring's bytes for an instance (the wrapper's
@@ -114,7 +134,21 @@ struct Shape {
   // bf16: four warps of 16 keys. float32: 16 KB of K rows per tile.
   static constexpr int TK = BF16 ? 64 : (16384 / (HD * 4) < 64 ? 16384 / (HD * 4) : 64);
   static constexpr int STAGE = 2 * TK * ROW;  // K rows, then V rows
-  static constexpr int SMEM = STAGES * STAGE;
+};
+
+// The ring's slots and the shared memory of an instance. Q8: a slot holds
+// TK int8 K rows, TK int8 V rows (QROW bytes each), then TK K and TK V
+// scales; after the ring, one dequantized tile laid out as Shape's slot.
+template <typename T, int HD, bool Q8>
+struct Ring {
+  using S = Shape<T, HD>;
+  static constexpr int QROW = HD + PAD;  // staged int8 row bytes
+  static constexpr int QCPR = HD / 16;   // 16-byte chunks per int8 row
+  static constexpr int SCALES = 2 * S::TK * QROW;  // the scales' offset in a slot
+  static constexpr int STAGE = Q8 ? SCALES + 2 * S::TK * static_cast<int>(sizeof(float))
+                                  : S::STAGE;
+  static constexpr int SMEM = STAGES * STAGE + (Q8 ? S::STAGE : 0);
+  static_assert(STAGE % 16 == 0, "slots must stay 16-byte aligned");
   // the merge's partials, reusing the ring: acc (WARPS, G, HD), then m and
   // l (WARPS, G) and the block's m and l (G), or the splits' m and l
   // (MAX_SPLIT, G) in the last block
@@ -144,6 +178,12 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 // bytes of shared memory are zeroed.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+// 4 bytes global -> shared (a scale); with bytes = 0 the 4 bytes are zeroed.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(bytes));
 }
 
@@ -180,12 +220,15 @@ struct Tile {
   const char* k;  // row 0 of the tile in the cache
   const char* v;
   int live;       // keys taking part: a prefix of the tile
+  const float* ks;  // the int8 instance: the scale of row 0
+  const float* vs;
 };
 
 // Tile ti of (b, h)'s list: its rows and how many of them take part.
-template <typename T, int HD>
+template <typename T, int HD, bool Q8>
 __device__ __forceinline__ Tile tile_of(const Args& a, int ti, int b, int h, long long ids0,
                                         long long p, bool uniform) {
+  using KT = typename std::conditional<Q8, signed char, T>::type;
   constexpr int TK = Shape<T, HD>::TK;
   const int j = ti / a.per_visit;
   const int t0 = (ti - j * a.per_visit) * TK;
@@ -201,25 +244,112 @@ __device__ __forceinline__ Tile tile_of(const Args& a, int ti, int b, int h, lon
     live = static_cast<int>(
         max(0LL, min(static_cast<long long>(len), p - (blk * a.bs + t0) + 1)));
   }
-  const T* k = static_cast<const T*>(a.k) + b * a.ks.b + h * a.ks.h + blk * a.ks.n + t0 * a.ks.t;
-  const T* v = static_cast<const T*>(a.v) + b * a.vs.b + h * a.vs.h + blk * a.vs.n + t0 * a.vs.t;
-  return {reinterpret_cast<const char*>(k), reinterpret_cast<const char*>(v), live};
+  const KT* k = static_cast<const KT*>(a.k) + b * a.ks.b + h * a.ks.h + blk * a.ks.n + t0 * a.ks.t;
+  const KT* v = static_cast<const KT*>(a.v) + b * a.vs.b + h * a.vs.h + blk * a.vs.n + t0 * a.vs.t;
+  Tile t{reinterpret_cast<const char*>(k), reinterpret_cast<const char*>(v), live, nullptr,
+         nullptr};
+  if constexpr (Q8) {
+    t.ks = static_cast<const float*>(a.ksc) + b * a.kss.b + h * a.kss.h + blk * a.kss.n +
+           t0 * a.kss.t;
+    t.vs = static_cast<const float*>(a.vsc) + b * a.vss.b + h * a.vss.h + blk * a.vss.n +
+           t0 * a.vss.t;
+  }
+  return t;
 }
 
 // Issue the copies of one tile into a ring slot: the live rows of K and V
-// from the cache, the rows up to the next multiple of 16 zero-filled.
-template <typename T, int HD>
+// (and, int8, their scales) from the cache, the rows up to the next
+// multiple of 16 zero-filled.
+template <typename T, int HD, bool Q8>
 __device__ __forceinline__ void stage_tile(unsigned char* slot, const Tile& t, const Args& a) {
   using S = Shape<T, HD>;
+  using R = Ring<T, HD, Q8>;
   const int rows = min(S::TK, (t.live + 15) & ~15);
-  const long long kst = a.ks.t * static_cast<long long>(sizeof(T));
-  const long long vst = a.vs.t * static_cast<long long>(sizeof(T));
-  for (int i = threadIdx.x; i < rows * S::CPR; i += THREADS) {
-    const int r = i / S::CPR, c = i % S::CPR;
-    const int bytes = r < t.live ? 16 : 0;
-    cp_async16(slot + r * S::ROW + 16 * c, t.k + r * kst + 16 * c, bytes);
-    cp_async16(slot + (S::TK + r) * S::ROW + 16 * c, t.v + r * vst + 16 * c, bytes);
+  if constexpr (!Q8) {
+    const long long kst = a.ks.t * static_cast<long long>(sizeof(T));
+    const long long vst = a.vs.t * static_cast<long long>(sizeof(T));
+    for (int i = threadIdx.x; i < rows * S::CPR; i += THREADS) {
+      const int r = i / S::CPR, c = i % S::CPR;
+      const int bytes = r < t.live ? 16 : 0;
+      cp_async16(slot + r * S::ROW + 16 * c, t.k + r * kst + 16 * c, bytes);
+      cp_async16(slot + (S::TK + r) * S::ROW + 16 * c, t.v + r * vst + 16 * c, bytes);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * R::QCPR; i += THREADS) {
+      const int r = i / R::QCPR, c = i % R::QCPR;
+      const int bytes = r < t.live ? 16 : 0;
+      cp_async16(slot + r * R::QROW + 16 * c, t.k + r * a.ks.t + 16 * c, bytes);
+      cp_async16(slot + (S::TK + r) * R::QROW + 16 * c, t.v + r * a.vs.t + 16 * c, bytes);
+    }
+    float* sc = reinterpret_cast<float*>(slot + R::SCALES);
+    for (int r = threadIdx.x; r < rows; r += THREADS) {
+      const int bytes = r < t.live ? 4 : 0;
+      cp_async4(sc + r, t.ks + r * a.kss.t, bytes);
+      cp_async4(sc + S::TK + r, t.vs + r * a.vss.t, bytes);
+    }
   }
+}
+
+// The int8 instance: each warp dequantizes the K and V rows of a staged
+// slot that it alone reads next (Warp::run's keys: bf16, the 16-key groups
+// [16 i, 16 i + 16) for i = warp, warp + WARPS, ... below the tile's live
+// keys rounded up to 16; float32, the keys warp, warp + WARPS, ... below
+// live) into `dst`, laid out as Shape's slot. Rows past the live keys hold
+// zero codes and zero scales, so they come out 0. No block barrier: a row
+// of `dst` is written and read by one warp, in program order, so only the
+// warp's lanes synchronize.
+__device__ __forceinline__ void store_deq16(float* d, uint4 raw, float s) {
+  const char4* c = reinterpret_cast<const char4*>(&raw);
+  float4* out = reinterpret_cast<float4*>(d);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    out[i] = make_float4(static_cast<float>(c[i].x) * s, static_cast<float>(c[i].y) * s,
+                         static_cast<float>(c[i].z) * s, static_cast<float>(c[i].w) * s);
+}
+__device__ __forceinline__ void store_deq16(__nv_bfloat16* d, uint4 raw, float s) {
+  s = __bfloat162float(__float2bfloat16(s));  // the scale in q's type
+  const char4* c = reinterpret_cast<const char4*>(&raw);
+  unsigned w[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    w[2 * i] = pack_bf16(static_cast<float>(c[i].x) * s, static_cast<float>(c[i].y) * s);
+    w[2 * i + 1] = pack_bf16(static_cast<float>(c[i].z) * s, static_cast<float>(c[i].w) * s);
+  }
+  uint4* out = reinterpret_cast<uint4*>(d);
+  out[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  out[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// Row `row` (K rows, then V rows) of the staged slot, 16 codes from column 16 c.
+template <typename T, int HD>
+__device__ __forceinline__ void dequant16(unsigned char* dst, const unsigned char* slot, int row,
+                                          int c) {
+  using S = Shape<T, HD>;
+  using R = Ring<T, HD, true>;
+  const float* sc = reinterpret_cast<const float*>(slot + R::SCALES);
+  const uint4 raw = *reinterpret_cast<const uint4*>(slot + row * R::QROW + 16 * c);
+  store_deq16(reinterpret_cast<T*>(dst + row * S::ROW) + 16 * c, raw, sc[row]);
+}
+
+template <typename T, int HD>
+__device__ __forceinline__ void dequant_warp(unsigned char* dst, const unsigned char* slot,
+                                             int live) {
+  using S = Shape<T, HD>;
+  constexpr int CH = HD / 16;  // 16-code chunks per row
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if constexpr (S::BF16) {
+    const int rows = min(S::TK, (live + 15) & ~15);
+    for (int k0 = warp * 16; k0 < rows; k0 += WARPS * 16)
+      for (int j = lane; j < 2 * 16 * CH; j += 32) {  // (K | V, 16 rows, CH chunks)
+        const int kv = j / (16 * CH), r = (j / CH) % 16;
+        dequant16<T, HD>(dst, slot, kv * S::TK + k0 + r, j % CH);
+      }
+  } else {
+    for (int key = warp; key < live; key += WARPS)
+      for (int j = lane; j < 2 * CH; j += 32)
+        dequant16<T, HD>(dst, slot, (j / CH) * S::TK + key, j % CH);
+  }
+  __syncwarp();
 }
 
 // The running softmax state of one warp over its keys, and its arithmetic.
@@ -415,9 +545,10 @@ struct Warp<T, HD, false> {
 };
 
 // One thread block per (split, b * KV + h).
-template <typename T, int HD>
+template <typename T, int HD, bool Q8>
 __global__ void __launch_bounds__(THREADS) kv_visit_kernel(const Args a) {
   using S = Shape<T, HD>;
+  using R = Ring<T, HD, Q8>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int split = blockIdx.x;
   const int bk = blockIdx.y;  // b * kv_heads + h
@@ -443,8 +574,8 @@ __global__ void __launch_bounds__(THREADS) kv_visit_kernel(const Args a) {
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (i < n_t)
-      stage_tile<T, HD>(smem + i * S::STAGE, tile_of<T, HD>(a, t_first + i, b, h, ids0, p, uniform),
-                        a);
+      stage_tile<T, HD, Q8>(smem + i * R::STAGE,
+                            tile_of<T, HD, Q8>(a, t_first + i, b, h, ids0, p, uniform), a);
     asm volatile("cp.async.commit_group;\n" ::);
   }
   for (int i = 0; i < n_t; ++i) {
@@ -452,11 +583,17 @@ __global__ void __launch_bounds__(THREADS) kv_visit_kernel(const Args a) {
     __syncthreads();  // tile i landed; slot (i - 1) % STAGES is free
     const int nx = i + STAGES - 1;
     if (nx < n_t)
-      stage_tile<T, HD>(smem + (nx % STAGES) * S::STAGE,
-                        tile_of<T, HD>(a, t_first + nx, b, h, ids0, p, uniform), a);
+      stage_tile<T, HD, Q8>(smem + (nx % STAGES) * R::STAGE,
+                            tile_of<T, HD, Q8>(a, t_first + nx, b, h, ids0, p, uniform), a);
     asm volatile("cp.async.commit_group;\n" ::);
-    const int live = tile_of<T, HD>(a, t_first + i, b, h, ids0, p, uniform).live;
-    w.run(smem + (i % STAGES) * S::STAGE, live, uniform, a.scale, a.neg);
+    const int live = tile_of<T, HD, Q8>(a, t_first + i, b, h, ids0, p, uniform).live;
+    const unsigned char* tile = smem + (i % STAGES) * R::STAGE;
+    if constexpr (Q8) {
+      unsigned char* deq = smem + STAGES * R::STAGE;
+      dequant_warp<T, HD>(deq, tile, live);
+      tile = deq;
+    }
+    w.run(tile, live, uniform, a.scale, a.neg);
   }
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();  // the ring is free: it holds the partials from here on
@@ -537,42 +674,42 @@ __global__ void __launch_bounds__(THREADS) kv_visit_kernel(const Args a) {
   if (threadIdx.x == 0) a.tickets[bk] = 0;  // ready for the next call
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool Q8>
 cudaError_t run(const Args& a, int tile, cudaStream_t stream) {
-  using S = Shape<T, HD>;
-  if (tile != S::TK) return cudaErrorInvalidValue;  // the wrapper's plan is for another tile
-  auto kernel = kv_visit_kernel<T, HD>;
-  MDRQ_TRY(mdrq::allow_smem(kernel, S::SMEM));
+  using R = Ring<T, HD, Q8>;
+  if (tile != Shape<T, HD>::TK) return cudaErrorInvalidValue;  // planned for another tile
+  auto kernel = kv_visit_kernel<T, HD, Q8>;
+  MDRQ_TRY(mdrq::allow_smem(kernel, R::SMEM));
   const dim3 grid(static_cast<unsigned>(a.n_split), static_cast<unsigned>(a.bkv));
-  kernel<<<grid, THREADS, S::SMEM, stream>>>(a);
+  kernel<<<grid, THREADS, R::SMEM, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool Q8>
 cudaError_t by_head_dim(int hd, const Args& a, int tile, cudaStream_t stream) {
   switch (hd) {
-    case 32: return run<T, 32>(a, tile, stream);
-    case 64: return run<T, 64>(a, tile, stream);
-    case 128: return run<T, 128>(a, tile, stream);
-    case 256: return run<T, 256>(a, tile, stream);
+    case 32: return run<T, 32, Q8>(a, tile, stream);
+    case 64: return run<T, 64, Q8>(a, tile, stream);
+    case 128: return run<T, 128, Q8>(a, tile, stream);
+    case 256: return run<T, 256, Q8>(a, tile, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool Q8>
 cudaError_t report(int* tile, int* smem) {
   *tile = Shape<T, HD>::TK;
-  *smem = Shape<T, HD>::SMEM;
+  *smem = Ring<T, HD, Q8>::SMEM;
   return cudaSuccess;
 }
 
-template <typename T>
+template <typename T, bool Q8>
 cudaError_t shape_by_head_dim(int hd, int* tile, int* smem) {
   switch (hd) {
-    case 32: return report<T, 32>(tile, smem);
-    case 64: return report<T, 64>(tile, smem);
-    case 128: return report<T, 128>(tile, smem);
-    case 256: return report<T, 256>(tile, smem);
+    case 32: return report<T, 32, Q8>(tile, smem);
+    case 64: return report<T, 64, Q8>(tile, smem);
+    case 128: return report<T, 128, Q8>(tile, smem);
+    case 256: return report<T, 256, Q8>(tile, smem);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -580,7 +717,9 @@ cudaError_t shape_by_head_dim(int hd, int* tile, int* smem) {
 }  // namespace
 
 // q, out: (B, KV, G, hd) contiguous; k, v: (B, KV, nb, bs, hd) with element
-// strides (b, h, n, t), a contiguous last axis and 16-byte aligned rows;
+// strides (b, h, n, t), a contiguous last axis and 16-byte aligned rows, of
+// q's type, or (q8 != 0) int8 with ksc, vsc: (B, KV, nb, bs, 1) float32
+// scales with element strides kss*, vss* (q8 = 0: unused, may be null);
 // ids: (B, KV, n_visit) contiguous, int64 if ids64 else int32; pos: (B,),
 // int64 if pos64 else int32. `tile` keys per tile (the instance's TK),
 // n_split blocks of `tps` tiles per (b, h), covering the n_visit *
@@ -590,16 +729,19 @@ cudaError_t shape_by_head_dim(int hd, int* tile, int* smem) {
 // not share tickets (the wrapper keeps a buffer per device and stream).
 // bf16 != 0: q, k, v and out are bfloat16, else float32.
 extern "C" int mdrq_kv_visit_attention(
-    const void* q, const void* k, const void* v, const void* ids, const void* pos, void* out,
-    float* part, int* tickets, int ids64, int pos64, int bf16, int batch, int kv_heads,
-    int g_n, int hd, int nb, int bs, int n_visit, int tile, int n_split, int tps,
-    long long ksb, long long ksh, long long ksn, long long kst, long long vsb, long long vsh,
-    long long vsn, long long vst, float scale, float neg, int device, void* stream) {
+    const void* q, const void* k, const void* v, const void* ksc, const void* vsc,
+    const void* ids, const void* pos, void* out, float* part, int* tickets, int ids64,
+    int pos64, int bf16, int q8, int batch, int kv_heads, int g_n, int hd, int nb, int bs,
+    int n_visit, int tile, int n_split, int tps, long long ksb, long long ksh, long long ksn,
+    long long kst, long long vsb, long long vsh, long long vsn, long long vst, long long kssb,
+    long long kssh, long long kssn, long long ksst, long long vssb, long long vssh,
+    long long vssn, long long vsst, float scale, float neg, int device, void* stream) {
   MDRQ_TRY(cudaSetDevice(device));
   const long long bkv = static_cast<long long>(batch) * kv_heads;
   if (g_n < 1 || g_n > MAX_GROUP || nb < 1 || bs < 1 || n_visit < 1 || bkv < 1 ||
       bkv > 65535 || tile < 1 || n_split < 1 || n_split > MAX_SPLIT || tps < 1 ||
-      (n_split > 1 && (part == nullptr || tickets == nullptr)))
+      (n_split > 1 && (part == nullptr || tickets == nullptr)) ||
+      (q8 && (ksc == nullptr || vsc == nullptr)))
     return cudaErrorInvalidValue;
   const long long per_visit = (bs + tile - 1) / tile;
   const long long n_tiles = per_visit * n_visit;
@@ -608,17 +750,26 @@ extern "C" int mdrq_kv_visit_attention(
     return cudaErrorInvalidValue;  // a split past the list, or tiles left over
   Args a{q, k, v, ids, pos, out, part, tickets, {ksb, ksh, ksn, kst}, {vsb, vsh, vsn, vst},
          ids64, pos64, kv_heads, g_n, nb, bs, n_visit, static_cast<int>(per_visit),
-         static_cast<int>(n_tiles), tps, n_split, static_cast<int>(bkv), scale, neg};
+         static_cast<int>(n_tiles), tps, n_split, static_cast<int>(bkv), scale, neg,
+         ksc, vsc, {kssb, kssh, kssn, ksst}, {vssb, vssh, vssn, vsst}};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) return by_head_dim<__nv_bfloat16>(hd, a, tile, st);
-  return by_head_dim<float>(hd, a, tile, st);
+  if (q8) {
+    if (bf16) return by_head_dim<__nv_bfloat16, true>(hd, a, tile, st);
+    return by_head_dim<float, true>(hd, a, tile, st);
+  }
+  if (bf16) return by_head_dim<__nv_bfloat16, false>(hd, a, tile, st);
+  return by_head_dim<float, false>(hd, a, tile, st);
 }
 
 // The instance's keys per tile and dynamic shared memory per thread block
-// (Shape::TK, Shape::SMEM) -> *tile, *smem; needs no device.
-extern "C" int mdrq_kv_visit_shape(int bf16, int hd, int* tile, int* smem) {
-  if (bf16) return shape_by_head_dim<__nv_bfloat16>(hd, tile, smem);
-  return shape_by_head_dim<float>(hd, tile, smem);
+// (Shape::TK, Ring::SMEM) -> *tile, *smem; needs no device.
+extern "C" int mdrq_kv_visit_shape(int bf16, int hd, int q8, int* tile, int* smem) {
+  if (q8) {
+    if (bf16) return shape_by_head_dim<__nv_bfloat16, true>(hd, tile, smem);
+    return shape_by_head_dim<float, true>(hd, tile, smem);
+  }
+  if (bf16) return shape_by_head_dim<__nv_bfloat16, false>(hd, tile, smem);
+  return shape_by_head_dim<float, false>(hd, tile, smem);
 }
 
 MDRQ_ERROR_STRING_FN

@@ -526,16 +526,19 @@ mask_counts = counted(
 )(_mask_counts)
 
 
-def _kv_visit_attention(q, k_blocks, v_blocks, block_ids, pos, *,
-                        backend="auto"):
+def _kv_visit_attention(q, k_blocks, v_blocks, block_ids, pos, k_scale=None,
+                        v_scale=None, *, backend="auto"):
     if check_backend(backend) == "torch":
-        _kvv.check_inputs(q, k_blocks, v_blocks, block_ids, pos)
+        _kvv.check_inputs(q, k_blocks, v_blocks, block_ids, pos, k_scale,
+                          v_scale)
         return _ref.kv_visit_attention_ref(q, k_blocks, v_blocks, block_ids,
-                                           pos)
-    return _kvv.kv_visit_attention(q, k_blocks, v_blocks, block_ids, pos)
+                                           pos, k_scale, v_scale)
+    return _kvv.kv_visit_attention(q, k_blocks, v_blocks, block_ids, pos,
+                                   k_scale, v_scale)
 
 
 kv_visit_attention = counted(
     "kv_visit_attention",
-    "Block-visit decode attention (zone-map-pruned KV) -> (B, KV, G, hd).",
+    "Block-visit decode attention (zone-map-pruned KV; an int8 cache with "
+    "its per-token scales) -> (B, KV, G, hd).",
 )(_kv_visit_attention)

@@ -177,13 +177,19 @@ def multi_va_filter_packed_ref(packed: torch.Tensor, cell_lo: torch.Tensor,
 
 def kv_visit_attention_ref(q: torch.Tensor, k_blocks: torch.Tensor,
                            v_blocks: torch.Tensor, block_ids: torch.Tensor,
-                           pos: torch.Tensor) -> torch.Tensor:
+                           pos: torch.Tensor,
+                           k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """Decode attention over only the listed key blocks.
 
     q: (B, KV, G, hd); k/v_blocks: (B, KV, nb, bs, hd), any strides (the
     model passes a block-major view of its token-major cache);
     block_ids: (B, KV, n_visit) (-1 = padding: reads block 0, masked);
-    pos: (B,). Scores and softmax in float32; masked keys take the finite
+    pos: (B,). An int8 cache comes with k/v_scale (B, KV, nb, bs, 1)
+    float32: the listed blocks are dequantized as the reference's pruned
+    branch does, ``code.to(q.dtype) * scale.to(q.dtype)`` in q's dtype.
+    Scores and softmax in float32; masked keys take the finite
     ``mask_fill(bfloat16)``. Returns (B, KV, G, hd) in q's dtype.
     """
     b, kv, g, hd = q.shape
@@ -191,6 +197,11 @@ def kv_visit_attention_ref(q: torch.Tensor, k_blocks: torch.Tensor,
     ids = block_ids.long().clamp(min=0)
     k_sel = torch.take_along_dim(k_blocks, ids[..., None, None], dim=2)
     v_sel = torch.take_along_dim(v_blocks, ids[..., None, None], dim=2)
+    if k_scale is not None:
+        k_sel = k_sel.to(q.dtype) * torch.take_along_dim(
+            k_scale, ids[..., None, None], dim=2).to(q.dtype)
+        v_sel = v_sel.to(q.dtype) * torch.take_along_dim(
+            v_scale, ids[..., None, None], dim=2).to(q.dtype)
     slots = ids[..., None] * bs + torch.arange(bs, device=q.device)
     valid = (slots <= pos.long()[:, None, None, None]) \
         & (block_ids[..., None] >= 0)

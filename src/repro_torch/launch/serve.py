@@ -1,14 +1,15 @@
 """Serving entrypoint: continuous batching + MDRQ admission.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_8b \\
-      --kv-prune 4 [--reduced] [--requests 8] [--slots 4] [--device cuda]
+      --kv-prune 4 [--kv-int8] [--reduced] [--requests 8] [--slots 4] \\
+      [--device cuda]
 
 Ports ``repro/launch/serve.py``: random-initialised weights (seed
-``--seed``), a synthetic request queue served through ``BatchServer``.
-``--kv-prune N`` turns on the zone-map KV block prune (blocks of 32 keys,
-keep N). Runs on ``cuda`` unless ``--device cpu``. Not ported yet:
-``--kv-int8`` (refused; see ROADMAP.md) and ``--ckpt-dir`` (checkpoints come
-with training).
+``--seed``), a synthetic request queue served through ``BatchServer``, for
+any of the ten architectures. ``--kv-int8`` quantizes the KV cache (int8
+codes, per-token scales); ``--kv-prune N`` turns on the zone-map KV block
+prune (blocks of 32 keys, keep N). Runs on ``cuda`` unless ``--device
+cpu``. Not ported yet: ``--ckpt-dir`` (checkpoints come with training).
 """
 import argparse
 import sys
@@ -36,12 +37,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.kv_int8:
-        ap.error("--kv-int8: int8 KV caches are not ported yet (ROADMAP.md, "
-                 "queue 1)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.kv_int8:
+        cfg = cfg.replace(kv_cache_int8=True)
     if args.kv_prune:
         cfg = cfg.replace(kv_block_prune=args.kv_prune, kv_block_size=32)
     model = build_model(cfg, device=args.device)
@@ -62,7 +62,8 @@ def main(argv=None) -> int:
     done = srv.serve(reqs, admission_query())
     seconds = time.perf_counter() - t0
     print(f"[serve] completed {len(done)}/{len(reqs)} (admission-filtered) "
-          f"in {seconds:.2f} s on {model.device}; kv_prune={args.kv_prune}",
+          f"in {seconds:.2f} s on {model.device}; kv_int8={args.kv_int8} "
+          f"kv_prune={args.kv_prune}",
           flush=True)
     for r in done:
         print(f"[serve] req {r.rid}: {r.output[:8].tolist()}...", flush=True)

@@ -27,13 +27,29 @@ def truncated_normal(shape, generator: torch.Generator,
     return x.clamp_(-TRUNC, TRUNC)
 
 
+# A draw of more elements than this is made one slice of the first axis at a
+# time, so its float32 temporaries stay small (arctic-480b's expert weights,
+# 128 x 7168 x 4864, would take 18 GB per float32 temporary at once).
+DRAW_CHUNK_ELEMS = 2 ** 30
+
+
 def dense_init(shape, dtype: torch.dtype, generator: torch.Generator, device,
                scale: float | None = None) -> torch.Tensor:
     """Truncated normal times ``scale`` (default ``fan_in ** -0.5``, fan_in
     = the first axis), drawn in float32 and cast to ``dtype``."""
+    shape = tuple(shape)
     fan_in = shape[0] if len(shape) > 1 else shape[-1]
     s = scale if scale is not None else fan_in ** -0.5
-    return (truncated_normal(shape, generator, device) * s).to(dtype)
+    if math.prod(shape) <= DRAW_CHUNK_ELEMS:
+        return (truncated_normal(shape, generator, device) * s).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = truncated_normal(shape[1:], generator, device) * s
+    return out
+
+
+def zeros_init(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 def ones_init(shape, dtype: torch.dtype, device) -> torch.Tensor:

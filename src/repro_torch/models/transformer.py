@@ -1,28 +1,36 @@
-"""Decoder-only LM, dense family, decode-serving half.
+"""Decoder-only LM, decode-serving half, for the dense / moe / ssm / hybrid
+/ vlm / audio (decoder-only) families.
 
-Ports ``DecoderLM`` of ``repro/models/transformer.py`` for ``family ==
-"dense"`` with a full (non-windowed) cache: ``init``, ``init_cache``,
-``decode_step`` and ``vocab_padded``. The reference scans a stacked layer
-tree; here the layers are a Python list of per-layer parameter dicts and the
-loop is a Python loop (PyTorch runs eagerly). The cache keeps the
-reference's stacked layout, ``k``/``v`` (L, B, S, KV, hd) and, under
-``kv_block_prune``, the zone maps ``kmin``/``kmax`` (L, B, nb, KV, hd)
-float32 — and ``decode_step`` updates it in place.
+Ports ``DecoderLM`` of ``repro/models/transformer.py``: ``init``,
+``init_cache``, ``decode_step`` and ``vocab_padded``, with the reference's
+per-layer blocks. The reference scans a stacked layer tree; here the layers
+are a Python list of per-layer parameter dicts and the loop is a Python loop
+(PyTorch runs eagerly). Hybrid (Griffin) stacks are a list of (rec, rec,
+attn) ``groups`` plus a ``tail`` of recurrent layers, RecurrentGemma's 26 =
+8 * 3 + 2. The cache keeps the reference's stacked layouts — ``k``/``v``
+(L, B, S, KV, hd) (int8 with ``k_scale``/``v_scale`` (L, B, S, KV, 1)
+float32 under ``kv_cache_int8``; S = min(slots, window) for a ring), the
+zone maps ``kmin``/``kmax`` (L, B, nb, KV, hd) float32 under
+``kv_block_prune``; the SSM states under ``layers``; the hybrid's per-group
+recurrent states and local-attention ring, and its tail's states — and
+``decode_step`` updates it in place.
 
-Not ported yet (``registry.build_model`` refuses them): the other families,
-sliding-window ring caches, int8 KV, modality prefixes, and the
-``forward``/``loss_fn``/``prefill`` entry points.
+A vlm's modality prefix enters only the training/prefill forward; decode
+embeds tokens alone, as the reference's does. The ``forward``/``loss_fn``/
+``prefill`` entry points come with the training slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from repro_torch import numerics
 from repro_torch.models import layers as L
-from repro_torch.models.params import ones_init
+from repro_torch.models import moe as M
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
 
 F32 = torch.float32
 VOCAB_MULT = 256  # pad vocab to a multiple of this, as the reference does
@@ -32,18 +40,59 @@ def vocab_padded(cfg) -> int:
     return L.round_up(cfg.vocab_size, VOCAB_MULT)
 
 
+# ---------------------------------------------------------------------------
+# per-layer blocks
+# ---------------------------------------------------------------------------
 def dense_layer_init(cfg, generator: torch.Generator, device) -> dict:
     return {
-        "ln1": ones_init((cfg.d_model,), F32, device),
+        "ln1": L.rmsnorm_init(cfg.d_model, device),
         "attn": L.attention_init(cfg, generator, device),
-        "ln2": ones_init((cfg.d_model,), F32, device),
+        "ln2": L.rmsnorm_init(cfg.d_model, device),
         "mlp": L.mlp_init(cfg, generator, device),
     }
 
 
+def moe_layer_init(cfg, generator: torch.Generator, device) -> dict:
+    return {
+        "ln1": L.rmsnorm_init(cfg.d_model, device),
+        "attn": L.attention_init(cfg, generator, device),
+        "ln2": L.rmsnorm_init(cfg.d_model, device),
+        "moe": M.moe_init(cfg, generator, device),
+    }
+
+
+def ssm_layer_init(cfg, generator: torch.Generator, device) -> dict:
+    return {"ln1": L.rmsnorm_init(cfg.d_model, device),
+            "ssm": S.ssm_init(cfg, generator, device)}
+
+
+def rec_layer_init(cfg, generator: torch.Generator, device) -> dict:
+    return {
+        "ln1": L.rmsnorm_init(cfg.d_model, device),
+        "rec": R.rglru_init(cfg, generator, device),
+        "ln2": L.rmsnorm_init(cfg.d_model, device),
+        "mlp": L.mlp_init(cfg, generator, device),
+    }
+
+
+LAYER_INIT = {"dense": dense_layer_init, "moe": moe_layer_init,
+              "ssm": ssm_layer_init, "vlm": dense_layer_init,
+              "audio": dense_layer_init}
+
+
+def _attn_window(cfg) -> Optional[int]:
+    return cfg.sliding_window
+
+
+def _put(cache: dict, i: int, new: dict) -> None:
+    """Write layer ``i``'s new state tensors into the stacked cache."""
+    for k, v in new.items():
+        cache[k][i] = v
+
+
 @dataclasses.dataclass(frozen=True)
 class DecoderLM:
-    """Dense decoder-only LM on one device.
+    """Family-dispatching decoder-only LM on one device.
 
     ``backend`` is handed to the counted ops: ``"auto"`` follows the tensors'
     device (the CUDA kernel on the card, the plain version on the CPU),
@@ -61,36 +110,76 @@ class DecoderLM:
     # -- init ---------------------------------------------------------------
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters drawn from ``generator`` (on ``self.device``):
-        the embedding table, the unembedding, then each layer's wq, wk, wv,
-        wo, wi_gate, wi_up, wo in order."""
-        cfg = self.cfg
-        return {
-            "embed": L.embedding_init(cfg, vocab_padded(cfg), generator,
-                                      self.device),
-            "final_ln": ones_init((cfg.d_model,), F32, self.device),
-            "layers": [dense_layer_init(cfg, generator, self.device)
-                       for _ in range(cfg.n_layers)],
+        the embedding table, the unembedding, then each layer's weights in
+        order (hybrid: each group's rec1, rec2, attn, then the tail)."""
+        cfg, dev = self.cfg, self.device
+        params: dict = {
+            "embed": L.embedding_init(cfg, vocab_padded(cfg), generator, dev),
+            "final_ln": L.rmsnorm_init(cfg.d_model, dev),
         }
+        if cfg.family == "hybrid":
+            n_groups, tail = divmod(cfg.n_layers, 3)
+            params["groups"] = [{
+                "rec1": rec_layer_init(cfg, generator, dev),
+                "rec2": rec_layer_init(cfg, generator, dev),
+                "attn": dense_layer_init(cfg, generator, dev),
+            } for _ in range(n_groups)]
+            if tail:
+                params["tail"] = [rec_layer_init(cfg, generator, dev)
+                                  for _ in range(tail)]
+        else:
+            layer_init = LAYER_INIT[cfg.family]
+            params["layers"] = [layer_init(cfg, generator, dev)
+                                for _ in range(cfg.n_layers)]
+        return params
 
     # -- serving ------------------------------------------------------------
     def init_cache(self, batch: int, slots: int, dtype=None) -> dict:
-        cfg = self.cfg
+        cfg, dev = self.cfg, self.device
         hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
         dt = self.dtype if dtype is None else dtype
-        shape = (cfg.n_layers, batch, slots, kv, hd)
-        cache = {
-            "k": torch.zeros(shape, dtype=dt, device=self.device),
-            "v": torch.zeros(shape, dtype=dt, device=self.device),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=self.device),
-        }
+
+        def stacked(n: int, state: dict) -> dict:
+            return {k: v[None].repeat(n, *([1] * v.dim()))
+                    for k, v in state.items()}
+
+        def zeros(shape, dtype=dt):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        def kv_slots(window):
+            return min(slots, window) if window else slots
+
+        pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        if cfg.family == "ssm":
+            st = S.ssm_init_state(cfg, batch, dt, dev)
+            return {"layers": stacked(cfg.n_layers, st), "pos": pos}
+        if cfg.family == "hybrid":
+            n_groups, tail = divmod(cfg.n_layers, 3)
+            w = kv_slots(cfg.local_window)
+            rec = R.rglru_init_state(cfg, batch, dt, dev)
+            cache = {"groups": {
+                "rec1": stacked(n_groups, rec), "rec2": stacked(n_groups, rec),
+                "k": zeros((n_groups, batch, w, kv, hd)),
+                "v": zeros((n_groups, batch, w, kv, hd))}}
+            if tail:
+                cache["tail"] = stacked(tail, rec)
+            cache["pos"] = pos
+            return cache
+        w = kv_slots(cfg.sliding_window)
+        kv_dt = torch.int8 if cfg.kv_cache_int8 else dt
+        shape = (cfg.n_layers, batch, w, kv, hd)
+        cache = {"k": zeros(shape, kv_dt), "v": zeros(shape, kv_dt),
+                 "pos": pos}
+        if cfg.kv_cache_int8:
+            cache["k_scale"] = zeros((*shape[:-1], 1), F32)
+            cache["v_scale"] = zeros((*shape[:-1], 1), F32)
         if cfg.kv_block_prune:
-            nb = slots // cfg.kv_block_size
+            nb = w // cfg.kv_block_size
             # zone-map "+infinity": dtype-derived so it survives bf16 casts
             big = numerics.finite_max(torch.bfloat16)
             zshape = (cfg.n_layers, batch, nb, kv, hd)
-            cache["kmin"] = torch.full(zshape, big, dtype=F32, device=self.device)
-            cache["kmax"] = torch.full(zshape, -big, dtype=F32,
-                                       device=self.device)
+            cache["kmin"] = torch.full(zshape, big, dtype=F32, device=dev)
+            cache["kmax"] = torch.full(zshape, -big, dtype=F32, device=dev)
         return cache
 
     def decode_step(self, params, cache, tokens, pos, *,
@@ -101,16 +190,57 @@ class DecoderLM:
         layer's (block ids, bounds) under ``kv_block_prune``."""
         cfg = self.cfg
         x = L.embed(params["embed"], tokens)
-        prune = bool(cfg.kv_block_prune)
-        for i, lp in enumerate(params["layers"]):
-            xn = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-            extras = ({"kmin": cache["kmin"][i], "kmax": cache["kmax"][i]}
-                      if prune else None)
-            x = x + L.mha_decode(lp["attn"], xn, pos, cache["k"][i],
-                                 cache["v"][i], cfg, extras=extras,
-                                 backend=self.backend, visits=visits)
-            x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+        if cfg.family == "ssm":
+            states = cache["layers"]
+            for i, lp in enumerate(params["layers"]):
+                xn = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+                y, st = S.ssm_decode(lp["ssm"], xn,
+                                     {k: v[i] for k, v in states.items()}, cfg)
+                _put(states, i, st)
+                x = x + y
+        elif cfg.family == "hybrid":
+            groups = cache["groups"]
+            for i, lp in enumerate(params["groups"]):
+                x = self._rec(lp["rec1"], x, groups["rec1"], i)
+                x = self._rec(lp["rec2"], x, groups["rec2"], i)
+                x = self._attn(lp["attn"], x, pos, groups["k"][i],
+                               groups["v"][i], None, cfg.local_window, visits)
+                x = x + L.mlp(lp["attn"]["mlp"],
+                              L.rmsnorm(lp["attn"]["ln2"], x, cfg.norm_eps))
+            for i, lp in enumerate(params.get("tail", [])):
+                x = self._rec(lp, x, cache["tail"], i)
+        else:
+            extra_keys = [k for k in ("k_scale", "v_scale", "kmin", "kmax")
+                          if k in cache]
+            for i, lp in enumerate(params["layers"]):
+                extras = {k: cache[k][i] for k in extra_keys}
+                x = self._attn(lp, x, pos, cache["k"][i], cache["v"][i],
+                               extras, _attn_window(cfg), visits)
+                xn2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+                if cfg.family == "moe":
+                    y2, _ = M.moe_apply(lp["moe"], xn2, cfg)
+                else:
+                    y2 = L.mlp(lp["mlp"], xn2)
+                x = x + y2
         x = L.rmsnorm(params["final_ln"], x, cfg.norm_eps)
         logits = L.unembed(params["embed"], x, cfg.tie_embeddings)
         cache["pos"] = pos + 1
         return logits, cache
+
+    def _attn(self, lp, x, pos, k, v, extras, window, visits):
+        """x + the layer's self-attention over its cache (written in place)."""
+        xn = L.rmsnorm(lp["ln1"], x, self.cfg.norm_eps)
+        return x + L.mha_decode(lp["attn"], xn, pos, k, v, self.cfg,
+                                window=window, extras=extras,
+                                backend=self.backend, visits=visits)
+
+    def _rec(self, lp, x, states: dict, i: int):
+        """A recurrent layer of the hybrid: RG-LRU, then the MLP; layer
+        ``i``'s state in the stacked ``states`` updated in place."""
+        cfg = self.cfg
+        xn = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        y, st = R.rglru_decode(lp["rec"], xn,
+                               {k: v[i] for k, v in states.items()}, cfg)
+        _put(states, i, st)
+        x = x + y
+        return x + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps))

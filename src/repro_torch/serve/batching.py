@@ -9,11 +9,23 @@ queue each step, and prompts are fed token by token through the same decode
 step. One counted ``ops.device_get`` per step brings the sampled tokens to
 the host.
 
+Every family serves through the same loop: the server asks the model for
+``init_cache(slots, max_len, dtype)`` and steps ``decode_step``; an
+encoder-decoder's cross cache is the caller's to fill
+(``model.fill_cross_cache(params, server.cache, frames)``) before serving.
+
 A quirk of the reference, kept because it changes results: refilling a slot
-resets neither its cache nor its zone maps. Positions restart at 0, so stale
-keys past ``pos`` are masked, but the stale ``kmin``/``kmax`` of a refilled
-slot still widen its blocks' bounds and so change which blocks the prune
-reads.
+resets none of its state. Positions restart at 0, so stale keys past ``pos``
+are masked, but:
+  * the stale ``kmin``/``kmax`` of a refilled slot still widen its blocks'
+    bounds and so change which blocks the prune reads;
+  * a ring cache's stale slots are not masked: at position p a ring slot
+    counts as holding position p - ((p - s) mod window) >= 0, so the new
+    request attends to its predecessor's keys in every slot it has not
+    overwritten yet;
+  * the recurrent state of an SSM or RG-LRU layer (and its conv window)
+    carries the previous request's state into the new one;
+  * an encoder-decoder slot keeps its cross K/V.
 """
 from __future__ import annotations
 
@@ -94,13 +106,16 @@ class BatchServer:
         self.gen[s] = []
         self.to_feed[s] = list(req.prompt.tolist())
         self.pos[s] = 0
-        # The slot's cache region is not reset: positions restart, and the
-        # full cache is masked by pos, so stale keys beyond pos are never
-        # attended to (stale zone maps still widen the block bounds).
+        # The slot's state is not reset, as in the reference: positions
+        # restart and a full cache is masked by pos, but stale zone maps,
+        # ring slots and recurrent states carry over (module docstring).
 
+    @torch.inference_mode()
     def serve(self, requests: list[Request],
               query: Optional[RangeQuery] = None) -> list[Request]:
-        """Run until all admitted requests complete; returns finished list."""
+        """Run until all admitted requests complete; returns finished list.
+        Runs under ``torch.inference_mode``: the decode loop records no
+        autograd state (a host-bound loop saves the per-op bookkeeping)."""
         queue = self.admit(requests, query or admission_query(), self.device,
                            self.model.backend)
         queue = queue[::-1]  # pop from the end

@@ -30,7 +30,11 @@ one device kernel per call by torch.profiler), at the split plan's edges
 (one visit, more splits than visits, B * KV above the SM count, 64 visits,
 padding spread over the splits, a list with no valid key), its masking
 edge cases, and the reduced Qwen3 decode on the card against the plain
-backend and the CPU. The pipelined MDRQ server on its launch and copy
+backend and the CPU. Its int8 instance (an int8 cache with per-token scales)
+at every head dim, partial tiles and merged splits, against the plain
+version and against the other instance on the dequantized cache (bit for
+bit where both plan the same splits), and the reduced Qwen3 int8 pruned
+decode. The pipelined MDRQ server on its launch and copy
 streams: 20 windows back to back through backlog 4, and an append between
 windows, equal to the synchronous server in order; its warm set complete
 after ``warmup()``. The budget under ``torch.cuda.set_sync_debug_mode
@@ -762,10 +766,104 @@ def test_kv_visit_rejects_what_the_kernel_does_not_take(dev):
         kv_visit.kv_visit_attention(q, strided, vb, ids, pos)
 
 
+def _kv_int8(args):
+    """An int8 copy of a _kv_case's cache (``quantize_kv`` per key and head)
+    -> (q, k codes view, v codes view, ids, pos, k scales view, v scales
+    view, the dequantized K view, the dequantized V view): each view
+    block-major over a token-major tensor, as the model passes them; the
+    dequantized cache in q's dtype as the plain version computes it."""
+    from repro_torch.models.layers import quantize_kv
+    q, kb, vb, ids, pos = args
+    b, kv, nb, bs, hd = kb.shape
+
+    def token_major(view):
+        return view.permute(0, 2, 3, 1, 4).reshape(b, nb * bs, kv, -1)
+
+    def view(c):
+        return c.view(b, nb, bs, kv, -1).permute(0, 3, 1, 2, 4)
+    out = []
+    for blocks in (kb, vb):
+        codes, scale = quantize_kv(token_major(blocks).float())
+        deq = codes.to(q.dtype) * scale.to(q.dtype)
+        out.append((view(codes), view(scale), view(deq)))
+    (kq, ks, kd), (vq, vs, vd) = out
+    return q, kq, vq, ids, pos, ks, vs, kd, vd
+
+
+# (b, kv, g, hd, nb, bs, n_visit): each head dim; partial tiles (blocks of
+# 33 and 200 keys); B * KV above the SM count; 64 visits (splits that merge)
+KV_INT8_SHAPES = [(2, 2, 4, 32, 4, 16, 2), (1, 1, 8, 64, 8, 32, 8),
+                  (4, 16, 1, 128, 16, 512, 4), (3, 2, 3, 256, 5, 200, 5),
+                  (1, 2, 1, 32, 4, 33, 1), (4, 40, 4, 128, 4, 32, 4),
+                  (1, 4, 8, 64, 70, 64, 64)]
+
+
+@pytest.mark.parametrize("shape", KV_INT8_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_kv_visit_int8_kernel_matches_plain(dev, shape, dtype):
+    """The int8 instance against the plain version (which dequantizes the
+    listed blocks in q's dtype), and against the instance of q's dtype on
+    the dequantized cache: bit for bit where the two plan the same splits
+    (the tensor cores see the same operands, merged in the same order),
+    else within the tolerance. Bit-identical when repeated and with int32
+    ids and positions; one device kernel per call; its launches counted
+    under its own name."""
+    from repro_torch.kernels import kv_visit
+    q, kq, vq, ids, pos, ks, vs, kd, vd = _kv_int8(
+        _kv_case(*shape, dtype, dev, seed=4))
+    got = kv_visit.kv_visit_attention(q, kq, vq, ids, pos, ks, vs)
+    assert got.dtype == dtype
+    tol = KV_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), ref.kv_visit_attention_ref(q, kq, vq, ids, pos, ks,
+                                                vs).float(),
+        rtol=tol, atol=tol)
+    other = kv_visit.kv_visit_attention(q, kd, vd, ids, pos)
+    b, kv, _, hd = q.shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def plan(int8):
+        return kv_visit.split_plan(
+            b * kv, ids.shape[2], kq.shape[3], kv_visit.tile_keys(hd, dtype),
+            sms * kv_visit.blocks_per_sm(hd, dtype, int8))
+    if plan(True) == plan(False):
+        assert torch.equal(got, other)
+    else:
+        torch.testing.assert_close(got.float(), other.float(), rtol=tol,
+                                   atol=tol)
+    assert torch.equal(got, kv_visit.kv_visit_attention(q, kq, vq, ids, pos,
+                                                        ks, vs))
+    assert torch.equal(got, kv_visit.kv_visit_attention(
+        q, kq, vq, ids.int(), pos.int(), ks, vs))
+    assert ops.kernel_launches() == {"kv_visit_attention[int8]": 3,
+                                     "kv_visit_attention": 1}
+    per_call, names = _device_kernels(
+        lambda: kv_visit.kv_visit_attention(q, kq, vq, ids, pos, ks, vs))
+    assert per_call == 1 and all("kv_visit_kernel" in n for n in names), names
+
+
+def test_kv_visit_int8_rejects_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels import kv_visit
+    q, kq, vq, ids, pos, ks, vs, kd, vd = _kv_int8(
+        _kv_case(1, 2, 4, 64, 4, 16, 2, torch.bfloat16, dev))
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        kv_visit.kv_visit_attention(q, kq, vq, ids, pos)
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        kv_visit.kv_visit_attention(q, kd, vd, ids, pos, ks, vs)
+    with pytest.raises(ValueError, match="float32"):
+        kv_visit.kv_visit_attention(q, kq, vq, ids, pos, ks.half(), vs)
+    with pytest.raises(TypeError):
+        kv_visit.kv_visit_attention(q.half(), kq, vq, ids, pos, ks, vs)
+    assert ops.kernel_launches() == {}
+
+
 @pytest.mark.parametrize("kw", [{}, dict(kv_block_prune=2, kv_block_size=4),
                                 dict(kv_block_prune=3, kv_block_size=4,
-                                     kv_prune_groups=2)],
-                         ids=["noprune", "prune2", "prune3-groups2"])
+                                     kv_prune_groups=2),
+                                dict(kv_block_prune=2, kv_block_size=4,
+                                     kv_cache_int8=True)],
+                         ids=["noprune", "prune2", "prune3-groups2",
+                              "prune2-int8"])
 def test_decode_step_kernel_matches_plain_and_cpu(dev, kw):
     """The reduced Qwen3 decode, float32: the kernel backend on the card
     against the plain backend on the card and the plain versions on the CPU
@@ -800,7 +898,9 @@ def test_decode_step_kernel_matches_plain_and_cpu(dev, kw):
     for other, other_v in (run(dev, "torch"), run("cpu", "auto")):
         torch.testing.assert_close(got, other, rtol=0, atol=1e-4)
         assert all(torch.equal(a, b) for a, b in zip(got_v, other_v))
-    n_launch = ops.kernel_launches().get("kv_visit_attention", 0)
+    name = "kv_visit_attention[int8]" if cfg.kv_cache_int8 \
+        else "kv_visit_attention"
+    n_launch = ops.kernel_launches().get(name, 0)
     assert n_launch == (toks.shape[1] * cfg.n_layers if kw else 0)
 
 

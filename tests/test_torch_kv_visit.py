@@ -6,6 +6,8 @@ Pallas kernel in interpret mode and its jnp oracle. Inputs come from numpy
 seeds. Tolerances: float32 rtol = atol = 1e-5 (sums in another order);
 bfloat16 2e-2 (as the reference's kernel tests use: both sides round the
 output to bfloat16, and the interpret-mode kernel rounds its score inputs).
+An int8 cache with per-token scales is held against the reference's
+gather-and-dequantize route at the same tolerances.
 """
 import numpy as np
 import jax
@@ -214,3 +216,59 @@ def test_int64_and_int32_ids_and_positions_agree(dtype):
         for p in (torch.int32, torch.int64):
             got = ops.kv_visit_attention(q, kb, vb, ids.to(i), pos.to(p))
             assert torch.equal(got, want)
+
+
+def _int8(arrays, dtype, seed=9):
+    """The case's K/V quantized per key and head (``quantize_kv``) -> the
+    torch inputs (q, k codes, v codes, ids, pos, k scales, v scales) and the
+    reference's gather-and-dequantize blocks, ``code.astype(dt) *
+    scale.astype(dt)`` (repro/models/layers.py:345-349) as jnp arrays."""
+    q, kb, vb, ids, pos = arrays
+    t = _torch(arrays, dtype)
+    codes, scales, deq = [], [], []
+    for x in (kb, vb):
+        c, s = layers.quantize_kv(torch.as_tensor(x))
+        codes.append(c)
+        scales.append(s)
+        dt = getattr(jnp, dtype)
+        deq.append(jnp.asarray(c.numpy()).astype(dt)
+                   * jnp.asarray(s.numpy()).astype(dt))
+    return (t[0], codes[0], codes[1], t[3], t[4], scales[0], scales[1]), deq
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_op_matches_reference_gather_and_dequantize(shape, dtype):
+    """An int8 cache with per-token scales: the op (its plain version on
+    the CPU) against the reference's route — the listed blocks dequantized
+    in q's dtype, then its kernel in interpret mode and its oracle on them.
+    Tolerances as the bf16/float32 cache's (the same operands)."""
+    arrays = _case(*shape, seed=7)
+    args, (jk, jv) = _int8(arrays, dtype)
+    ops.reset_counters()
+    got = ops.kv_visit_attention(*args)
+    assert ops.counters() == {"kv_visit_attention": 1}
+    assert got.dtype == getattr(torch, dtype)
+    jq, _, _, jids, jpos = _jax(arrays, dtype)
+    tol = TOL[dtype]
+    for want in (jax_kv_visit(jq, jk, jv, jids, jpos, interpret=True),
+                 jax_kv_visit_ref(jq, jk, jv, jids, jpos)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+    assert torch.equal(got, ops.kv_visit_attention(*args, backend="torch"))
+
+
+def test_int8_wrapper_takes_both_scales_or_none():
+    arrays = _case(*SHAPES[0], seed=8)
+    q, kq, vq, ids, pos, ks, vs = _int8(arrays, "float32")[0]
+    kb = _torch(arrays, "float32")[1]
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        kv_visit.kv_visit_attention(q, kq, vq, ids, pos)
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        kv_visit.kv_visit_attention(q, kq, vq, ids, pos, ks, None)
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        kv_visit.kv_visit_attention(q, kb, kb, ids, pos, ks, vs)
+    with pytest.raises(ValueError, match="float32"):
+        kv_visit.kv_visit_attention(q, kq, vq, ids, pos, ks[..., :1, :],
+                                    vs)

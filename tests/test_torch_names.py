@@ -23,6 +23,7 @@ REF, PORT = SRC / "repro", SRC / "repro_torch"
 
 ITEM3 = "ROADMAP queue 1 item 3: the benchmark PR"
 ITEM4 = "ROADMAP queue 1 item 4: the rest of the LM framework"
+TRAIN = "ROADMAP queue 1 item 4: the training slice"
 ITEM5 = "ROADMAP queue 1 item 5: the mesh and compile tools"
 
 MISSING_MODULES = {
@@ -31,11 +32,7 @@ MISSING_MODULES = {
     "launch/mesh.py": ITEM5,
     "launch/perf.py": ITEM5,
     "launch/train.py": ITEM4,
-    "models/encdec.py": ITEM4,
-    "models/moe.py": ITEM4,
-    "models/rglru.py": ITEM4,
     "models/shardctx.py": ITEM5,
-    "models/ssm.py": ITEM4,
     "train/__init__.py": ITEM4,
     "train/checkpoint.py": ITEM4,
     "train/optimizer.py": ITEM4,
@@ -63,21 +60,22 @@ MISSING_NAMES = {
         "aot_cache_size": _AOT, "aot_counters": _AOT,
         "clear_aot_cache": _AOT, "set_backend": _BACKEND,
         "use_xla": _BACKEND, "default_interpret": _BACKEND},
-    "models/layers.py": {n: ITEM4 for n in (
-        "KVCache", "cross_attend", "cross_kv", "mha_train", "quantize_kv",
-        "rmsnorm_init", "xent_loss")},
+    "models/encdec.py": {n: TRAIN for n in (
+        "EncDecLM.forward", "EncDecLM.loss_fn", "EncDecLM.prefill")},
+    "models/layers.py": {"xent_loss": TRAIN},
     "models/params.py": {n: ITEM4 for n in (
         "DEFAULT_RULES", "Param", "abstract_like", "is_param", "pspec_tree",
-        "sharding_tree", "split_tree", "stack_layer_params", "zeros_init")},
-    "models/registry.py": {n: ITEM4 for n in (
+        "sharding_tree", "split_tree", "stack_layer_params")},
+    "models/registry.py": {n: ITEM5 for n in (
         "CellSpec", "TP", "attn_policy", "batch_axes", "cache_pspecs_for",
-        "make_cell", "shape_applicable", "sharding_rules")},
-    "models/transformer.py": {n: ITEM4 for n in (
+        "make_cell", "sharding_rules")},
+    "models/rglru.py": {"rglru_train": TRAIN},
+    "models/ssm.py": {"ssd_chunked": TRAIN, "ssm_train": TRAIN},
+    "models/transformer.py": {n: TRAIN for n in (
         "DecoderLM.forward", "DecoderLM.loss_fn", "DecoderLM.prefill",
-        "dense_layer_train", "moe_layer_init", "moe_layer_train",
-        "rec_layer_init", "rec_layer_train", "ssm_layer_init",
+        "dense_layer_train", "moe_layer_train", "rec_layer_train",
         "ssm_layer_train")},
-    "serve/serve_step.py": {"make_prefill": ITEM4},
+    "serve/serve_step.py": {"make_prefill": TRAIN},
 }
 
 
