@@ -2441,8 +2441,9 @@ def kv_bound(q, ids, pos, bs: int) -> tuple[float, str, int]:
 
 
 def decode_kv_case(pos: list, slots: int, block: int, prune: int,
-                   seed: int = 1) -> tuple:
-    """One layer of a Qwen3-8B decode step, without the model: token-major
+                   seed: int = 1, arch: str = LM_ARCH) -> tuple:
+    """One layer of a decode step of ``arch`` (Qwen3-8B unless named),
+    without the model: token-major
     K/V (B, slots, KV, hd) bf16 from a generator (seed), zeros past each
     row's position; q from the same generator; the visit list as the
     model's prune makes it (the top ``prune`` blocks by the zone-map bound,
@@ -2454,7 +2455,7 @@ def decode_kv_case(pos: list, slots: int, block: int, prune: int,
     from repro_torch.kernels.reducers import topk_ascending_ties
     from repro_torch.models import layers
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     b, g, nb = len(pos), cfg.n_heads // kv, slots // block
     pos = torch.tensor(pos, device="cuda")
@@ -2482,6 +2483,27 @@ def decode_kv_case(pos: list, slots: int, block: int, prune: int,
     def view(c):
         return c.view(b, nb, block, kv, hd).permute(0, 3, 1, 2, 4)
     return q, view(k), view(v), ids, pos
+
+
+def decode_kv_int8_case(pos: list, slots: int, block: int, prune: int,
+                        seed: int = 1, arch: str = "deepseek_moe_16b") -> tuple:
+    """``decode_kv_case`` of ``arch`` (deepseek-moe-16b, the int8 cache's
+    model, unless named) with its cache quantized as the decode quantizes
+    it (``quantize_kv`` per token and head) -> (q, k codes view, v codes
+    view, ids, pos, k scales view, v scales view), every view block-major
+    over a token-major tensor, as the model passes them."""
+    from repro_torch.models.layers import quantize_kv
+    q, kb, vb, ids, pos = decode_kv_case(pos, slots, block, prune, seed, arch)
+    b, kv, nb, bs, hd = kb.shape
+    out = []
+    for blocks in (kb, vb):
+        codes, scale = quantize_kv(
+            blocks.permute(0, 2, 3, 1, 4).reshape(b, nb * bs, kv, hd))
+        out += [c.view(b, nb, bs, kv, -1).permute(0, 3, 1, 2, 4)
+                for c in (codes, scale)]
+        del blocks
+    kq, ks, vq, vs = out
+    return q, kq, vq, ids, pos, ks, vs
 
 
 def kv_visit_row(cfg, cache, call, server_call) -> dict:

@@ -30,9 +30,9 @@
 //   split_plan fills one wave of one block per SM (4 splits of 32 tiles at
 //   B = 4, KV = 8, 16 visits of 512 keys: 128 blocks of 2,048 keys); two
 //   blocks fit an SM, but on an H100 a block streams faster alone. The int8
-//   instance plans two per SM where they fit (its warps dequantize each
-//   tile; a second block's warps issue while the first's wait). A list of
-//   at most 4 tiles is one block (no merge).
+//   instance plans two per SM (its warps convert every code they read; a
+//   second block's warps issue while the first's wait; three are slower).
+//   A list of at most 4 tiles is one block (no merge).
 // - A ring of STAGES tiles in shared memory, filled by cp.async two tiles
 //   ahead of the compute (commit groups, one __syncthreads per tile): at
 //   the shape above a block keeps 64 KB of K/V loads in flight. Only the
@@ -41,7 +41,10 @@
 //   tiles never see stale shared memory. A tile of padding, or past pos,
 //   reads nothing and is skipped, unless no key of the whole list is
 //   valid. Each staged row is padded by 16 bytes, so the 8 rows of every
-//   ldmatrix fall in 8 distinct bank groups.
+//   ldmatrix fall in 8 distinct bank groups. An int8 block walks its
+//   split's tiles with a cursor (listed block, first key), makes each tile
+//   once, when it stages it, and gives each thread fixed 16-byte pieces of
+//   fixed rows: its per-tile address arithmetic is a few adds.
 // - bf16 arithmetic on tensor cores, mma.sync.m16n8k16 (bf16 in, f32
 //   accumulate), one warp per 16 keys of a tile. Scores: M = the query rows
 //   (G <= 8, padded to 16 with zero rows), N = keys, K = hd; q's fragments
@@ -74,14 +77,30 @@
 //   in 16-byte pieces: hd >= 32 is two or more per row) and each key's
 //   float32 K and V scales (4-byte cp.async: a scale sits KV * 4 bytes
 //   from the next key's in the cache's (B, S, KV, 1) layout, so no 16-byte
-//   alignment holds). Before a warp reads a tile, it dequantizes the rows
-//   it alone will read, 16 codes a lane at a time, into a tile of q's type
-//   in shared memory laid out as the other instance's slot (no block
-//   barrier: a row is written and read by one warp), to exactly the plain
-//   version's operands: bf16(code * bf16(scale)) for bf16 (the product of
-//   a 7-bit integer and an 8-bit mantissa is exact in float32, so one
-//   rounding, as torch's bf16 multiply), code * scale in float32. The
-//   compute is the other instance's, unchanged.
+//   alignment holds). In bf16 the staged codes go straight into the
+//   tensor-core operands, dequantized in registers; no bf16 tile is
+//   written to shared memory. K's fragments are read with 32-bit shared
+//   loads in the fragment's own k order (staged rows are hd + 16 bytes
+//   apart, 36 words at hd = 128, so the 8 keys of a load fall 4 banks
+//   apart). For V one 32-bit load of a key's codes feeds four n-tiles:
+//   n-index g of n-tile t is hd column 32 (t / 4) + 4 g + t % 4, a
+//   permutation of the output columns only, so each output element sums
+//   the same products in the same order (Warp::save writes the columns
+//   back through the same map). A pair of codes becomes a bf16x2 exactly
+//   with one byte permute, two logic ops and one bf16x2 subtraction: the
+//   low 7 bits m of a code under bf16's exponent of 128 read 128 + m, its
+//   sign bit in that exponent's lowest bit reads 128 (or 256 when the code
+//   is negative), and the difference is the code (|c| <= 128 fits bf16's 8
+//   significant bits). A bf16x2 multiply by the two keys' bf16 scales then
+//   rounds each exact product once, to nearest even. So the operands are
+//   the plain version's bf16(code * bf16(scale)) bit for bit, with no
+//   conversion instruction per code (a float32 route, 2^23 + 128 + c by a
+//   byte permute, read 2-9% slower on an H100), and the compute is the
+//   other instance's. The float32 instance dequantizes, before a warp reads a
+//   tile, the rows it alone will read into a float32 tile in shared memory
+//   laid out as the other instance's slot (no block barrier: a row is
+//   written and read by one warp), code * scale, then runs the float32
+//   compute.
 #include "common.cuh"
 
 #include <cuda_bf16.h>
@@ -138,7 +157,8 @@ struct Shape {
 
 // The ring's slots and the shared memory of an instance. Q8: a slot holds
 // TK int8 K rows, TK int8 V rows (QROW bytes each), then TK K and TK V
-// scales; after the ring, one dequantized tile laid out as Shape's slot.
+// scales; in float32, after the ring, one dequantized tile laid out as
+// Shape's slot.
 template <typename T, int HD, bool Q8>
 struct Ring {
   using S = Shape<T, HD>;
@@ -147,7 +167,7 @@ struct Ring {
   static constexpr int SCALES = 2 * S::TK * QROW;  // the scales' offset in a slot
   static constexpr int STAGE = Q8 ? SCALES + 2 * S::TK * static_cast<int>(sizeof(float))
                                   : S::STAGE;
-  static constexpr int SMEM = STAGES * STAGE + (Q8 ? S::STAGE : 0);
+  static constexpr int SMEM = STAGES * STAGE + (Q8 && !S::BF16 ? S::STAGE : 0);
   static_assert(STAGE % 16 == 0, "slots must stay 16-byte aligned");
   // the merge's partials, reusing the ring: acc (WARPS, G, HD), then m and
   // l (WARPS, G) and the block's m and l (G), or the splits' m and l
@@ -224,14 +244,13 @@ struct Tile {
   const float* vs;
 };
 
-// Tile ti of (b, h)'s list: its rows and how many of them take part.
+// The tile of (b, h)'s list at listed block j, keys from t0: its rows and
+// how many of them take part.
 template <typename T, int HD, bool Q8>
-__device__ __forceinline__ Tile tile_of(const Args& a, int ti, int b, int h, long long ids0,
-                                        long long p, bool uniform) {
+__device__ __forceinline__ Tile tile_at(const Args& a, int j, int t0, int b, int h,
+                                        long long ids0, long long p, bool uniform) {
   using KT = typename std::conditional<Q8, signed char, T>::type;
   constexpr int TK = Shape<T, HD>::TK;
-  const int j = ti / a.per_visit;
-  const int t0 = (ti - j * a.per_visit) * TK;
   const int len = min(TK, a.bs - t0);
   const long long raw = load_index(a.ids, ids0 + j, a.ids64);
   const long long blk = min(max(raw, 0LL), static_cast<long long>(a.nb - 1));
@@ -257,6 +276,15 @@ __device__ __forceinline__ Tile tile_of(const Args& a, int ti, int b, int h, lon
   return t;
 }
 
+// Tile ti of (b, h)'s list.
+template <typename T, int HD, bool Q8>
+__device__ __forceinline__ Tile tile_of(const Args& a, int ti, int b, int h, long long ids0,
+                                        long long p, bool uniform) {
+  const int j = ti / a.per_visit;
+  return tile_at<T, HD, Q8>(a, j, (ti - j * a.per_visit) * Shape<T, HD>::TK, b, h, ids0, p,
+                            uniform);
+}
+
 // Issue the copies of one tile into a ring slot: the live rows of K and V
 // (and, int8, their scales) from the cache, the rows up to the next
 // multiple of 16 zero-filled.
@@ -275,14 +303,27 @@ __device__ __forceinline__ void stage_tile(unsigned char* slot, const Tile& t, c
       cp_async16(slot + (S::TK + r) * S::ROW + 16 * c, t.v + r * vst + 16 * c, bytes);
     }
   } else {
-    for (int i = threadIdx.x; i < rows * R::QCPR; i += THREADS) {
-      const int r = i / R::QCPR, c = i % R::QCPR;
-      const int bytes = r < t.live ? 16 : 0;
-      cp_async16(slot + r * R::QROW + 16 * c, t.k + r * a.ks.t + 16 * c, bytes);
-      cp_async16(slot + (S::TK + r) * R::QROW + 16 * c, t.v + r * a.vs.t + 16 * c, bytes);
+    // each thread copies the 16-byte piece c of rows r0, r0 + RPP, ...: per
+    // tile a few adds of address arithmetic
+    constexpr int RPP = THREADS / R::QCPR;  // rows per pass
+    static_assert(THREADS % R::QCPR == 0 && S::TK % RPP == 0 && S::TK <= THREADS,
+                  "the passes cover the tile");
+    const int r0 = threadIdx.x / R::QCPR, c = threadIdx.x % R::QCPR;
+    const char* k = t.k + r0 * a.ks.t + 16 * c;
+    const char* v = t.v + r0 * a.vs.t + 16 * c;
+    unsigned char* d = slot + r0 * R::QROW + 16 * c;
+#pragma unroll
+    for (int pass = 0; pass < S::TK / RPP; ++pass) {
+      const int r = r0 + pass * RPP;
+      if (r < rows) {
+        const int bytes = r < t.live ? 16 : 0;
+        cp_async16(d + pass * RPP * R::QROW, k + pass * RPP * a.ks.t, bytes);
+        cp_async16(d + (S::TK + pass * RPP) * R::QROW, v + pass * RPP * a.vs.t, bytes);
+      }
     }
     float* sc = reinterpret_cast<float*>(slot + R::SCALES);
-    for (int r = threadIdx.x; r < rows; r += THREADS) {
+    const int r = threadIdx.x;
+    if (r < rows) {
       const int bytes = r < t.live ? 4 : 0;
       cp_async4(sc + r, t.ks + r * a.kss.t, bytes);
       cp_async4(sc + S::TK + r, t.vs + r * a.vss.t, bytes);
@@ -290,79 +331,175 @@ __device__ __forceinline__ void stage_tile(unsigned char* slot, const Tile& t, c
   }
 }
 
-// The int8 instance: each warp dequantizes the K and V rows of a staged
-// slot that it alone reads next (Warp::run's keys: bf16, the 16-key groups
-// [16 i, 16 i + 16) for i = warp, warp + WARPS, ... below the tile's live
-// keys rounded up to 16; float32, the keys warp, warp + WARPS, ... below
-// live) into `dst`, laid out as Shape's slot. Rows past the live keys hold
-// zero codes and zero scales, so they come out 0. No block barrier: a row
-// of `dst` is written and read by one warp, in program order, so only the
-// warp's lanes synchronize.
-__device__ __forceinline__ void store_deq16(float* d, uint4 raw, float s) {
-  const char4* c = reinterpret_cast<const char4*>(&raw);
-  float4* out = reinterpret_cast<float4*>(d);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    out[i] = make_float4(static_cast<float>(c[i].x) * s, static_cast<float>(c[i].y) * s,
-                         static_cast<float>(c[i].z) * s, static_cast<float>(c[i].w) * s);
-}
-__device__ __forceinline__ void store_deq16(__nv_bfloat16* d, uint4 raw, float s) {
-  s = __bfloat162float(__float2bfloat16(s));  // the scale in q's type
-  const char4* c = reinterpret_cast<const char4*>(&raw);
-  unsigned w[8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    w[2 * i] = pack_bf16(static_cast<float>(c[i].x) * s, static_cast<float>(c[i].y) * s);
-    w[2 * i + 1] = pack_bf16(static_cast<float>(c[i].z) * s, static_cast<float>(c[i].w) * s);
-  }
-  uint4* out = reinterpret_cast<uint4*>(d);
-  out[0] = make_uint4(w[0], w[1], w[2], w[3]);
-  out[1] = make_uint4(w[4], w[5], w[6], w[7]);
-}
-
-// Row `row` (K rows, then V rows) of the staged slot, 16 codes from column 16 c.
-template <typename T, int HD>
-__device__ __forceinline__ void dequant16(unsigned char* dst, const unsigned char* slot, int row,
-                                          int c) {
-  using S = Shape<T, HD>;
-  using R = Ring<T, HD, true>;
-  const float* sc = reinterpret_cast<const float*>(slot + R::SCALES);
-  const uint4 raw = *reinterpret_cast<const uint4*>(slot + row * R::QROW + 16 * c);
-  store_deq16(reinterpret_cast<T*>(dst + row * S::ROW) + 16 * c, raw, sc[row]);
-}
-
-template <typename T, int HD>
+// The float32 int8 instance: each warp dequantizes the K and V rows of a
+// staged slot that it alone reads next (Warp::run's keys warp, warp +
+// WARPS, ... below the tile's live keys) into `dst`, laid out as Shape's
+// slot, code * scale. No block barrier: a row of `dst` is written and read
+// by one warp, in program order, so only the warp's lanes synchronize.
+template <int HD>
 __device__ __forceinline__ void dequant_warp(unsigned char* dst, const unsigned char* slot,
                                              int live) {
-  using S = Shape<T, HD>;
+  using S = Shape<float, HD>;
+  using R = Ring<float, HD, true>;
   constexpr int CH = HD / 16;  // 16-code chunks per row
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if constexpr (S::BF16) {
-    const int rows = min(S::TK, (live + 15) & ~15);
-    for (int k0 = warp * 16; k0 < rows; k0 += WARPS * 16)
-      for (int j = lane; j < 2 * 16 * CH; j += 32) {  // (K | V, 16 rows, CH chunks)
-        const int kv = j / (16 * CH), r = (j / CH) % 16;
-        dequant16<T, HD>(dst, slot, kv * S::TK + k0 + r, j % CH);
-      }
-  } else {
-    for (int key = warp; key < live; key += WARPS)
-      for (int j = lane; j < 2 * CH; j += 32)
-        dequant16<T, HD>(dst, slot, (j / CH) * S::TK + key, j % CH);
-  }
+  const float* sc = reinterpret_cast<const float*>(slot + R::SCALES);
+  for (int key = warp; key < live; key += WARPS)
+    for (int j = lane; j < 2 * CH; j += 32) {  // (K | V, CH chunks)
+      const int row = (j / CH) * S::TK + key, c = j % CH;
+      const uint4 raw = *reinterpret_cast<const uint4*>(slot + row * R::QROW + 16 * c);
+      const char4* in = reinterpret_cast<const char4*>(&raw);
+      float4* out = reinterpret_cast<float4*>(dst + row * S::ROW) + 4 * c;
+      const float s = sc[row];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        out[i] = make_float4(static_cast<float>(in[i].x) * s, static_cast<float>(in[i].y) * s,
+                             static_cast<float>(in[i].z) * s, static_cast<float>(in[i].w) * s);
+    }
   __syncwarp();
+}
+
+// The bf16 int8 instance's operands, made in registers from staged codes
+// (see the note at the top).
+__device__ __forceinline__ unsigned bf16x2_sub(unsigned a, unsigned b) {
+  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const unsigned*>(&d);
+}
+__device__ __forceinline__ unsigned bf16x2_mul(unsigned a, unsigned b) {
+  const __nv_bfloat162 p = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const unsigned*>(&p);
+}
+
+// (a & b) | c, one instruction.
+__device__ __forceinline__ unsigned and_or(unsigned a, unsigned b, unsigned c) {
+  unsigned d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// bf16x2 of (byte e0 of w0) * lo(s2), (byte e1 of w1) * hi(s2): two int8
+// codes made bf16 exactly, times two bf16 scales, each product rounded once.
+__device__ __forceinline__ unsigned deq_pair(unsigned w0, unsigned e0, unsigned w1, unsigned e1,
+                                             unsigned s2) {
+  // deq_pair body (tools/kv_int8_probe.py patches its variants in here)
+  const unsigned p = __byte_perm(w0, w1, e0 | (e1 + 4) << 8);  // the codes in bytes 0 and 2
+  const unsigned x = and_or(p, 0x007F007Fu, 0x43004300u);      // 128 + (code & 127)
+  const unsigned t = and_or(p, 0x00800080u, 0x43004300u);      // 128, or 256 if code < 0
+  return bf16x2_mul(bf16x2_sub(x, t), s2);
 }
 
 // The running softmax state of one warp over its keys, and its arithmetic.
 // bf16: lane (g = lane / 4, c = lane % 4) owns query row g and, of the
-// output, columns n * 8 + 2 c + {0, 1} (acc[n]); l is the lane's share.
-template <typename T, int HD, bool BF16 = Shape<T, HD>::BF16>
+// output, elements n * 8 + 2 c + {0, 1} of acc[n] (col() maps them to hd
+// columns); l is the lane's share. Q8: the slot holds int8 codes.
+template <typename T, int HD, bool Q8, bool BF16 = Shape<T, HD>::BF16>
 struct Warp;
 
-template <typename T, int HD>
-struct Warp<T, HD, true> {
+template <typename T, int HD, bool Q8>
+struct Warp<T, HD, Q8, true> {
+  using S = Shape<T, HD>;
+  using R = Ring<T, HD, Q8>;
+  static constexpr int QW = R::QROW / 4;  // words per staged int8 row
   unsigned qa[HD / 16][2];  // A fragments of q (rows >= G are zero)
   float acc[HD / 8][2];
   float m, l;
+
+  // The hd column of acc[n][i] (lane c = lane % 4): in Q8, n-index 2 c + i
+  // of n-tile n is column 32 (n / 4) + 4 (2 c + i) + n % 4.
+  __device__ __forceinline__ static int col(int n, int i, int c) {
+    if constexpr (Q8) return 32 * (n / 4) + 4 * (2 * c + i) + n % 4;
+    return n * 8 + 2 * c + i;
+  }
+
+  // Scores of query row g against keys k0 + 8 nb + 2 c + {0, 1} (s[nb]).
+  __device__ __forceinline__ void scores(const unsigned char* slot, int k0,
+                                         float (&s)[2][2]) const {
+    const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb) {  // keys k0 + 8 nb + [0, 8)
+      s[nb][0] = s[nb][1] = 0.f;
+      if constexpr (Q8) {
+        // key k0 + 8 nb + g at hd 32 kp + 8 i + 2 c + {0, 1}: bytes 2 (c % 2)
+        // + {0, 1} of word 8 kp + 2 i + c / 2 of its row
+        const int key = k0 + nb * 8 + g;
+        const unsigned* row = reinterpret_cast<const unsigned*>(slot + key * R::QROW) + c / 2;
+        const float sk = reinterpret_cast<const float*>(slot + R::SCALES)[key];
+        const unsigned s2 = pack_bf16(sk, sk);
+        const unsigned e = 2 * (c % 2);
+#pragma unroll
+        for (int kp = 0; kp < HD / 32; ++kp) {  // hd [32 kp, 32 kp + 32)
+          unsigned bf[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const unsigned w = row[8 * kp + 2 * i];
+            bf[i] = deq_pair(w, e, w, e + 1, s2);
+          }
+          mma_rows8(s[nb][0], s[nb][1], qa[2 * kp][0], qa[2 * kp][1], bf[0], bf[1]);
+          mma_rows8(s[nb][0], s[nb][1], qa[2 * kp + 1][0], qa[2 * kp + 1][1], bf[2], bf[3]);
+        }
+      } else {
+        const unsigned char* kt = slot + k0 * S::ROW;
+#pragma unroll
+        for (int kp = 0; kp < HD / 32; ++kp) {  // hd [32 kp, 32 kp + 32)
+          unsigned bf[4];
+          ldmatrix_x4(bf, kt + (nb * 8 + (lane & 7)) * S::ROW + (kp * 4 + (lane >> 3)) * 16);
+          mma_rows8(s[nb][0], s[nb][1], qa[2 * kp][0], qa[2 * kp][1], bf[0], bf[1]);
+          mma_rows8(s[nb][0], s[nb][1], qa[2 * kp + 1][0], qa[2 * kp + 1][1], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  // acc = acc * corr + P V over keys k0 + [0, 16): P as the pair pa and its
+  // residual pl.
+  __device__ __forceinline__ void values(const unsigned char* slot, int k0, float corr,
+                                         const unsigned (&pa)[2], const unsigned (&pl)[2]) {
+    const int lane = threadIdx.x % 32, c = lane % 4;
+    if constexpr (Q8) {
+      // keys k0 + 2 c + {0, 1, 8, 9} at columns 32 j + 4 g + [0, 4): word
+      // 8 j + g of each row feeds n-tiles 4 j + [0, 4)
+      const unsigned* vt = reinterpret_cast<const unsigned*>(slot + (S::TK + k0) * R::QROW) +
+                           lane / 4;
+      const float* sv = reinterpret_cast<const float*>(slot + R::SCALES) + S::TK + k0;
+      const unsigned s01 = pack_bf16(sv[2 * c], sv[2 * c + 1]);
+      const unsigned s89 = pack_bf16(sv[2 * c + 8], sv[2 * c + 9]);
+#pragma unroll
+      for (int j = 0; j < HD / 32; ++j) {
+        const unsigned w0 = vt[(2 * c) * QW + 8 * j];
+        const unsigned w1 = vt[(2 * c + 1) * QW + 8 * j];
+        const unsigned w8 = vt[(2 * c + 8) * QW + 8 * j];
+        const unsigned w9 = vt[(2 * c + 9) * QW + 8 * j];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int n = 4 * j + e;
+          const unsigned b0 = deq_pair(w0, e, w1, e, s01);
+          const unsigned b1 = deq_pair(w8, e, w9, e, s89);
+          acc[n][0] *= corr;
+          acc[n][1] *= corr;
+          mma_rows8(acc[n][0], acc[n][1], pa[0], pa[1], b0, b1);
+          mma_rows8(acc[n][0], acc[n][1], pl[0], pl[1], b0, b1);
+        }
+      }
+    } else {
+      const unsigned char* vt = slot + (S::TK + k0) * S::ROW;
+#pragma unroll
+      for (int np = 0; np < HD / 16; ++np) {  // hd [16 np, 16 np + 16)
+        unsigned vf[4];
+        ldmatrix_x4_trans(vf, vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * S::ROW +
+                                  (np * 2 + (lane >> 4)) * 16);
+        acc[2 * np][0] *= corr;
+        acc[2 * np][1] *= corr;
+        acc[2 * np + 1][0] *= corr;
+        acc[2 * np + 1][1] *= corr;
+        mma_rows8(acc[2 * np][0], acc[2 * np][1], pa[0], pa[1], vf[0], vf[1]);
+        mma_rows8(acc[2 * np][0], acc[2 * np][1], pl[0], pl[1], vf[0], vf[1]);
+        mma_rows8(acc[2 * np + 1][0], acc[2 * np + 1][1], pa[0], pa[1], vf[2], vf[3]);
+        mma_rows8(acc[2 * np + 1][0], acc[2 * np + 1][1], pl[0], pl[1], vf[2], vf[3]);
+      }
+    }
+  }
 
   __device__ __forceinline__ void init(const T* q, int g_n, float neg) {
     const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
@@ -384,23 +521,10 @@ struct Warp<T, HD, true> {
   // for i = w, w + WARPS, ...; keys >= live score -inf (weight 0).
   __device__ __forceinline__ void run(const unsigned char* slot, int live, bool uniform,
                                       float scale, float neg) {
-    using S = Shape<T, HD>;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, c = lane % 4;
     for (int k0 = warp * 16; k0 < live; k0 += WARPS * 16) {
-      const unsigned char* kt = slot + k0 * S::ROW;
-      const unsigned char* vt = slot + (S::TK + k0) * S::ROW;
       float s[2][2];
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb) {  // keys k0 + 8 nb + [0, 8)
-        s[nb][0] = s[nb][1] = 0.f;
-#pragma unroll
-        for (int kp = 0; kp < HD / 32; ++kp) {  // hd [32 kp, 32 kp + 32)
-          unsigned bf[4];
-          ldmatrix_x4(bf, kt + (nb * 8 + (lane & 7)) * S::ROW + (kp * 4 + (lane >> 3)) * 16);
-          mma_rows8(s[nb][0], s[nb][1], qa[2 * kp][0], qa[2 * kp][1], bf[0], bf[1]);
-          mma_rows8(s[nb][0], s[nb][1], qa[2 * kp + 1][0], qa[2 * kp + 1][1], bf[2], bf[3]);
-        }
-      }
+      scores(slot, k0, s);
       float mx = -INFINITY;
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb)
@@ -434,20 +558,7 @@ struct Warp<T, HD, true> {
         pa[nb] = *reinterpret_cast<const unsigned*>(&hi);
         pl[nb] = pack_bf16(s[nb][0] - back.x, s[nb][1] - back.y);
       }
-#pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {  // hd [16 np, 16 np + 16)
-        unsigned vf[4];
-        ldmatrix_x4_trans(vf, vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * S::ROW +
-                                  (np * 2 + (lane >> 4)) * 16);
-        acc[2 * np][0] *= corr;
-        acc[2 * np][1] *= corr;
-        acc[2 * np + 1][0] *= corr;
-        acc[2 * np + 1][1] *= corr;
-        mma_rows8(acc[2 * np][0], acc[2 * np][1], pa[0], pa[1], vf[0], vf[1]);
-        mma_rows8(acc[2 * np][0], acc[2 * np][1], pl[0], pl[1], vf[0], vf[1]);
-        mma_rows8(acc[2 * np + 1][0], acc[2 * np + 1][1], pa[0], pa[1], vf[2], vf[3]);
-        mma_rows8(acc[2 * np + 1][0], acc[2 * np + 1][1], pl[0], pl[1], vf[2], vf[3]);
-      }
+      values(slot, k0, corr, pa, pl);
     }
   }
 
@@ -461,8 +572,8 @@ struct Warp<T, HD, true> {
     float* row = wacc + (warp * g_n + g) * HD;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
-      row[n * 8 + 2 * c] = acc[n][0];
-      row[n * 8 + 2 * c + 1] = acc[n][1];
+      row[col(n, 0, c)] = acc[n][0];
+      row[col(n, 1, c)] = acc[n][1];
     }
     if (c == 0) {
       wm[warp * g_n + g] = m;
@@ -472,9 +583,9 @@ struct Warp<T, HD, true> {
 };
 
 // float32: lane owns elements [lane * EPL, lane * EPL + EPL) of every row;
-// m and l are the same in every lane.
-template <typename T, int HD>
-struct Warp<T, HD, false> {
+// m and l are the same in every lane. Q8 reads the dequantized tile.
+template <typename T, int HD, bool Q8>
+struct Warp<T, HD, Q8, false> {
   static constexpr int EPL = HD / 32;
   float qr[MAX_GROUP][EPL];
   float acc[MAX_GROUP][EPL];
@@ -567,33 +678,65 @@ __global__ void __launch_bounds__(THREADS) kv_visit_kernel(const Args a) {
   const int t_first = split * a.tps;
   const int n_t = min(a.tps, a.n_tiles - t_first);  // >= 1 (split_plan)
 
-  Warp<T, HD> w;
+  Warp<T, HD, Q8> w;
   w.init(static_cast<const T*>(a.q) + static_cast<long long>(bk) * a.g_n * HD, a.g_n, a.neg);
 
   // The ring: tile i lives in slot i % STAGES; one commit group per tile.
-#pragma unroll
-  for (int i = 0; i < STAGES - 1; ++i) {
-    if (i < n_t)
-      stage_tile<T, HD, Q8>(smem + i * R::STAGE,
-                            tile_of<T, HD, Q8>(a, t_first + i, b, h, ids0, p, uniform), a);
+  if constexpr (Q8) {
+    // The split's tiles in list order from (listed block j, key t0), each
+    // made once, when it is staged; live0, live1 and live2 are the live
+    // keys of tiles i, i + 1 and i + 2. (The same walk slows the bf16
+    // instance's row 12 by 1-2% on an H100, so it keeps tile_of.)
+    static_assert(STAGES == 3, "three tiles' live keys rotate");
+    int j = t_first / a.per_visit, t0 = (t_first - j * a.per_visit) * S::TK;
+    auto stage_next = [&](int slot) {
+      const Tile t = tile_at<T, HD, Q8>(a, j, t0, b, h, ids0, p, uniform);
+      stage_tile<T, HD, Q8>(smem + slot * R::STAGE, t, a);
+      t0 += S::TK;
+      if (t0 >= a.bs) {
+        t0 = 0;
+        ++j;
+      }
+      return t.live;
+    };
+    int live0 = stage_next(0);  // n_t >= 1
     asm volatile("cp.async.commit_group;\n" ::);
-  }
-  for (int i = 0; i < n_t; ++i) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
-    __syncthreads();  // tile i landed; slot (i - 1) % STAGES is free
-    const int nx = i + STAGES - 1;
-    if (nx < n_t)
-      stage_tile<T, HD, Q8>(smem + (nx % STAGES) * R::STAGE,
-                            tile_of<T, HD, Q8>(a, t_first + nx, b, h, ids0, p, uniform), a);
+    int live1 = n_t > 1 ? stage_next(1) : 0;
     asm volatile("cp.async.commit_group;\n" ::);
-    const int live = tile_of<T, HD, Q8>(a, t_first + i, b, h, ids0, p, uniform).live;
-    const unsigned char* tile = smem + (i % STAGES) * R::STAGE;
-    if constexpr (Q8) {
-      unsigned char* deq = smem + STAGES * R::STAGE;
-      dequant_warp<T, HD>(deq, tile, live);
-      tile = deq;
+    for (int i = 0; i < n_t; ++i) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
+      __syncthreads();  // tile i landed; slot (i - 1) % STAGES is free
+      const int live2 = i + 2 < n_t ? stage_next((i + 2) % STAGES) : 0;
+      asm volatile("cp.async.commit_group;\n" ::);
+      const unsigned char* tile = smem + (i % STAGES) * R::STAGE;
+      if constexpr (!S::BF16) {
+        unsigned char* deq = smem + STAGES * R::STAGE;
+        dequant_warp<HD>(deq, tile, live0);
+        tile = deq;
+      }
+      w.run(tile, live0, uniform, a.scale, a.neg);
+      live0 = live1;
+      live1 = live2;
     }
-    w.run(tile, live, uniform, a.scale, a.neg);
+  } else {
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) {
+      if (i < n_t)
+        stage_tile<T, HD, Q8>(smem + i * R::STAGE,
+                              tile_of<T, HD, Q8>(a, t_first + i, b, h, ids0, p, uniform), a);
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+    for (int i = 0; i < n_t; ++i) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
+      __syncthreads();  // tile i landed; slot (i - 1) % STAGES is free
+      const int nx = i + STAGES - 1;
+      if (nx < n_t)
+        stage_tile<T, HD, Q8>(smem + (nx % STAGES) * R::STAGE,
+                              tile_of<T, HD, Q8>(a, t_first + nx, b, h, ids0, p, uniform), a);
+      asm volatile("cp.async.commit_group;\n" ::);
+      const int live = tile_of<T, HD, Q8>(a, t_first + i, b, h, ids0, p, uniform).live;
+      w.run(smem + (i % STAGES) * R::STAGE, live, uniform, a.scale, a.neg);
+    }
   }
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();  // the ring is free: it holds the partials from here on

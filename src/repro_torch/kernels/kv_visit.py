@@ -17,10 +17,14 @@ positions (int64 or int32) are read as they come: no cast is launched.
 An int8 cache (``kv_cache_int8``) comes with its per-token scales, the
 block-major views of the (B, S, KV, 1) float32 scale tensors: the kernel's
 int8 instance streams the codes (half the bytes of bf16 rows) and the
-scales (4 bytes a key and head, read one by one: no 16-byte alignment) and
-dequantizes in shared memory to exactly the plain version's operands,
-``bf16(code * bf16(scale))`` (float32 for a float32 q), before the tensor
-cores see them. Its launches count under ``kv_visit_attention[int8]``.
+scales (4 bytes a key and head, read one by one: no 16-byte alignment).
+For a bf16 q the staged codes are dequantized in registers, straight into
+the tensor cores' operands (byte permutes and one subtraction give each
+code's exact value, a bf16x2 multiply by the bf16 scales rounds once), to
+exactly the plain version's operands, ``bf16(code * bf16(scale))``; no
+bf16 tile passes through shared memory. For a float32 q each warp
+dequantizes its rows to ``code * scale`` in shared memory first. Its
+launches count under ``kv_visit_attention[int8]``.
 
 Work split (``split_plan``, a function of the shapes alone): each listed
 block is cut into tiles of ``tile_keys`` keys, the list's tiles into
@@ -100,8 +104,9 @@ def blocks_per_sm(hd: int, dtype: torch.dtype, int8: bool) -> int:
     """Thread blocks per SM the split plan fills: one for an instance that
     reads K/V of q's dtype (on an H100 a block streams faster alone on its
     SM), two for the int8 instance where its shared memory allows (its
-    warps dequantize each tile before the tensor cores take it; a second
-    block's warps issue while the first's wait)."""
+    warps convert every code they read into the tensor cores' operands; a
+    second block's warps issue while the first's wait; three read slower,
+    ``tools/kv_split_sweep.py --int8``)."""
     if not int8:
         return 1
     return max(1, min(2, SMEM_PER_SM // instance_shape(hd, dtype, True)[1]))

@@ -33,8 +33,9 @@ edge cases, and the reduced Qwen3 decode on the card against the plain
 backend and the CPU. Its int8 instance (an int8 cache with per-token scales)
 at every head dim, partial tiles and merged splits, against the plain
 version and against the other instance on the dequantized cache (bit for
-bit where both plan the same splits), and the reduced Qwen3 int8 pruned
-decode. The pipelined MDRQ server on its launch and copy
+bit where both plan the same splits), its V operands bit for bit
+``bf16(code * bf16(scale))`` for every code and tie-rounding scales, and
+the reduced Qwen3 int8 pruned decode. The pipelined MDRQ server on its launch and copy
 streams: 20 windows back to back through backlog 4, and an append between
 windows, equal to the synchronous server in order; its warm set complete
 after ``warmup()``. The budget under ``torch.cuda.set_sync_debug_mode
@@ -840,6 +841,78 @@ def test_kv_visit_int8_kernel_matches_plain(dev, shape, dtype):
     per_call, names = _device_kernels(
         lambda: kv_visit.kv_visit_attention(q, kq, vq, ids, pos, ks, vs))
     assert per_call == 1 and all("kv_visit_kernel" in n for n in names), names
+
+
+# V scales of the operand test: the smallest quantize_kv makes, 1/127, 1,
+# a large one, a typical one, one whose product with a code is often a
+# bf16 tie (1 + 2^-7: code 96 gives 96.75, halfway between 96.5 and 97),
+# and two float32 scales halfway between bf16 neighbours (their own
+# rounding a tie: to 1 and to 1 + 2^-6)
+KV_OPERAND_SCALES = [1e-12, 1 / 127, 1.0, 3e4, 0.0236, 1 + 2 ** -7,
+                     1 + 2 ** -8, 1 + 3 * 2 ** -8]
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["unsplit", "split"])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_kv_visit_int8_value_operands_bit_for_bit(dev, hd, split):
+    """The bf16 int8 instance's V operands: in each (b, kv head) one key
+    scores 1016 sqrt(hd) (K codes 127, q 8) and every other listed key 0,
+    so its softmax weight is exactly 1, the others' exactly 0, and each
+    output row is exactly that key's V row as the tensor cores saw it. The
+    64 rows hold every code from -128 to 127 (a seeded permutation of the
+    columns) under each scale of KV_OPERAND_SCALES, at 64 positions that
+    cover every key of a tile (every fragment slot of every warp); with
+    ``split`` the list is 16 blocks of 64 keys (merged splits), else 2.
+    Equal, bit for bit, to bf16(code * bf16(scale))."""
+    from repro_torch.kernels import kv_visit
+    b, kv, g, bs = 4, 16, 2, 64
+    n_visit = 16 if split else 2
+    nb = n_visit + 2
+    rows = b * kv
+    rng = np.random.default_rng(0)
+    chunks = 256 // hd
+    codes = torch.zeros((rows, hd), dtype=torch.int8)
+    scales = torch.zeros(rows)
+    for r in range(rows):
+        c = (r // 8) % chunks
+        codes[r] = torch.as_tensor(rng.permutation(
+            np.arange(-128, 128)[c * hd:(c + 1) * hd]).astype(np.int8))
+        scales[r] = KV_OPERAND_SCALES[r % 8]
+    ids = torch.as_tensor(np.stack([rng.permutation(nb)[:n_visit]
+                                    for _ in range(rows)])).view(b, kv, n_visit)
+    # row r's key: list position (r % n_visit, key 5 r % 64 of the block)
+    at = [(r % n_visit, 5 * r % bs) for r in range(rows)]
+    kq = torch.zeros((b, nb * bs, kv, hd), dtype=torch.int8)
+    vq = torch.as_tensor(rng.integers(-128, 128, (b, nb * bs, kv, hd),
+                                      dtype=np.int8))
+    ks = torch.full((b, nb * bs, kv, 1), 0.5)
+    vs = torch.full((b, nb * bs, kv, 1), 0.01)
+    for r, (j, t) in enumerate(at):
+        i, h = divmod(r, kv)
+        slot = int(ids[i, h, j]) * bs + t
+        kq[i, slot, h] = 127
+        ks[i, slot, h] = 1.0
+        vq[i, slot, h] = codes[r]
+        vs[i, slot, h] = scales[r]
+    want = (codes.float() * scales.to(torch.bfloat16).float()[:, None]
+            ).to(torch.bfloat16)
+    assert torch.equal(want, codes.to(torch.bfloat16)
+                       * scales.to(torch.bfloat16)[:, None])
+
+    def view(c):
+        return c.to(dev).view(b, nb, bs, kv, -1).permute(0, 3, 1, 2, 4)
+    q = torch.full((b, kv, g, hd), 8.0, dtype=torch.bfloat16, device=dev)
+    pos = torch.full((b,), nb * bs - 1, device=dev)
+    ids = ids.to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split = kv_visit.split_plan(
+        rows, n_visit, bs, kv_visit.tile_keys(hd, torch.bfloat16),
+        sms * kv_visit.blocks_per_sm(hd, torch.bfloat16, True))[0]
+    assert (n_split > 1) == split
+    got = kv_visit.kv_visit_attention(q, view(kq), view(vq), ids, pos,
+                                      view(ks), view(vs))
+    for gi in range(g):
+        assert torch.equal(got[:, :, gi].reshape(rows, hd).cpu(), want)
 
 
 def test_kv_visit_int8_rejects_what_the_kernel_does_not_take(dev):

@@ -272,3 +272,52 @@ def test_int8_wrapper_takes_both_scales_or_none():
     with pytest.raises(ValueError, match="float32"):
         kv_visit.kv_visit_attention(q, kq, vq, ids, pos, ks[..., :1, :],
                                     vs)
+
+
+def test_int8_operands_equal_the_kernels_byte_arithmetic():
+    """The arithmetic the int8 instance's bf16 operands rest on, for every
+    code from -128 to 127 and 10,000 log-normal scales (numpy, seed 0) with
+    1e-12, 1/127, 1, 3e4 and two scales whose bf16 rounding is a tie. The
+    float32 route: a byte with its sign bit flipped is code + 128;
+    0x4B000000 | (code + 128) as float32, minus 8388736, is the code
+    exactly, and so is its high half as bfloat16. The kernel's bf16 route:
+    the bf16 of bits 0x4300 | (byte & 0x7F) (128 + the low 7 bits) minus
+    that of 0x4300 | (byte & 0x80) (128, or 256 for a negative code) is the
+    code, exactly. Times float32(bf16(scale)) the product is exact in
+    float32, and one round to bfloat16 gives the plain version's operand
+    ``code.to(bf16) * scale.to(bf16)``, which is the reference's
+    ``code.astype(bf16) * scale.astype(bf16)``."""
+    rng = np.random.default_rng(0)
+    scales = np.concatenate([
+        np.exp(rng.normal(-4.0, 3.0, 10_000)),
+        [1e-12, 1 / 127, 1.0, 3e4, 1 + 2 ** -8, 1 + 3 * 2 ** -8]]).astype(np.float32)
+    codes = np.arange(-128, 128).astype(np.int8)
+    flipped = codes.view(np.uint8) ^ np.uint8(0x80)
+    assert np.array_equal(flipped.astype(np.int32), codes.astype(np.int32) + 128)
+    f = ((flipped.astype(np.uint32) | np.uint32(0x4B000000)).view(np.float32)
+         - np.float32(8388736.0))
+    assert np.array_equal(f, codes.astype(np.float32))
+    hi = torch.as_tensor((f.view(np.uint32) >> 16).astype(np.uint16)
+                         .view(np.int16)).view(torch.bfloat16)
+    assert torch.equal(hi, torch.as_tensor(codes).to(torch.bfloat16))
+    byte = codes.view(np.uint8).astype(np.int16)
+
+    def bf16_bits(bits):
+        return torch.as_tensor(bits.astype(np.uint16).view(np.int16)
+                               ).view(torch.bfloat16)
+    x = bf16_bits(0x4300 | (byte & 0x7F))
+    t = bf16_bits(0x4300 | (byte & 0x80))
+    assert torch.equal(x.float(), torch.as_tensor(128.0 + (byte & 0x7F)))
+    assert torch.equal(x - t, torch.as_tensor(codes).to(torch.bfloat16))
+    assert torch.equal(x.double() - t.double(),
+                       torch.as_tensor(codes).double())   # exact
+    s16 = torch.as_tensor(scales).to(torch.bfloat16)
+    prod = torch.as_tensor(f)[:, None] * s16.float()[None, :]
+    assert torch.equal(prod.double(), torch.as_tensor(f).double()[:, None]
+                       * s16.double()[None, :])          # exact in float32
+    plain = torch.as_tensor(codes).to(torch.bfloat16)[:, None] * s16[None, :]
+    assert torch.equal(prod.to(torch.bfloat16), plain)
+    jax_deq = (jnp.asarray(codes).astype(jnp.bfloat16)[:, None]
+               * jnp.asarray(scales).astype(jnp.bfloat16)[None, :])
+    assert np.array_equal(np.asarray(jax_deq.astype(jnp.float32)),
+                          plain.float().numpy())
