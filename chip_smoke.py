@@ -94,8 +94,9 @@ non-zero without printing a result:
                ``MDRQServer`` (256 Count queries) and ``serve_pipelined`` on
                the D = 8 engine equal to ``query_batch``. Then 10,000 rows
                appended and 10,000 ids deleted (tombstones in every shard)
-               on the D = 8 engine and its plain twin: B = 128 under the
-               eight specs against each other and numpy over the live rows,
+               on the D = 8 engine and its plain twin: B = 128 (Ids and
+               Mask 32, as in the delta phase) under the eight specs
+               against each other and numpy over the live rows,
                then ``compact()`` (the mesh kept) and the same checks.
                Printed: each mesh's layout, warm qps of Count, Agg sum and
                TopK d3 at B = 128 beside the unmeshed ``scan``, the merge's
@@ -136,8 +137,9 @@ non-zero without printing a result:
                each call must see exactly the writes before it) and directly
                on the plain engine: 100,000 fresh GMRQB rows appended (seed 1,
                1% of the base), then 100,000 base ids and 10,000 of the new
-               ids deleted (numpy seed 1). Every method at B = 128 and the
-               row scan at B = 8, under the eight specs, against the plain
+               ids deleted (numpy seed 1). Every method at B = 128 (Ids and
+               Mask at 32: host-bound, ~2.5 s a call at 128) and the row
+               scan at B = 8, under the eight specs, against the plain
                engine, 16 queries against numpy over the live rows, each
                bucket at its frozen budget; warm qps of Count, Agg sum and
                TopK d3 per path, frozen and under the delta; the tombstone
@@ -145,7 +147,7 @@ non-zero without printing a result:
  14. budget:delta — the budget phase again, under the live delta.
  15. compact — ``compact()`` on both engines, side by side on two host
                threads (id map, version 1, seconds, peak device memory),
-               then the delta phase's B = 128 checks again.
+               then the delta phase's checks again.
  16. examples — ``ColumnarScan.mask_batch``, ``mask_batch_partial`` and
                ``count_batch`` (also ``partial=True``) at B = 128 of the
                workload on the compacted engine: equal to the plain
@@ -200,13 +202,15 @@ non-zero without printing a result:
                (the multi-block set's call with the most valid keys).
  18. lm_families — every family's decode-serving path, one model at a
                time (random bf16 weights from a torch.Generator, seed 0),
-               each freed before the next: deepseek-moe-16b as published
-               (int8 cache, prune 4 of 32 blocks of 32 keys), arctic-480b
-               at 1 of 35 layers and llava-next-34b at 8 of 60 (full
-               width), h2o-danube-1.8b (int8, its 4,096-slot window),
-               recurrentgemma-2b, mamba2-780m and seamless-m4t-large-v2
-               (its cross cache filled from seeded stub frame embeddings,
-               max_len // 4 of them) as published. Each serves the lm
+               each freed before the next, all at full width and cut in
+               depth: deepseek-moe-16b at 8 of 28 layers (int8 cache,
+               prune 4 of 32 blocks of 32 keys), arctic-480b at 1 of 35,
+               llava-next-34b at 8 of 60, h2o-danube-1.8b at 6 of 24 (int8,
+               its 4,096-slot window), recurrentgemma-2b at 5 of 26 (one
+               group and the tail), mamba2-780m at 8 of 48 and
+               seamless-m4t-large-v2 at 6 of 24 decoder layers (its 24
+               encoder layers; its cross cache filled from seeded stub
+               frame embeddings, max_len // 4 of them). Each serves the lm
                phase's multi-block set (8 requests, prompts 40-120, 24
                new) through ``BatchServer(slots=4, max_len=1024)``, every
                kernel call held against its plain version, and is replayed
@@ -225,6 +229,26 @@ non-zero without printing a result:
                its time beside the bf16 instance's and the
                gather-and-dequantize route's; then its error and time at
                the server shape (the served call with the most valid keys).
+ 19. train   — the training path. (a) ``launch.train`` for smollm-360m at
+               full width on cuda:0: 20 steps of batch 8 x seq 512, one
+               checkpoint at step 20 under ``build/chip_train`` (removed
+               after): every logged loss finite, step 20's below step 1's,
+               the admission filter launched row 5, 6 or 8 and admitted the
+               ids of a plain-backend engine on the same features; printed:
+               ms/step (median of steps 2-20), tokens/s, peak allocated GB,
+               the model-FLOP share (``train_flops`` over the step time x
+               989.4 TFLOP/s dense bf16) beside the nvidia-smi line. (b)
+               ``launch.serve --ckpt-dir`` (``--kv-prune 4``) loads step 20
+               and serves 8 requests with the tokens of a ``BatchServer`` on
+               the trainer's final parameters, ``kv_visit_attention``
+               launched. (c) ``prefill``'s last-token logits against
+               ``decode_step`` over the same 64-token prompts (B = 2) within
+               ``LOGIT_ATOL``. (d) At the reduced config, a
+               ``SimulatedPreemption`` at step 25 with checkpoints every 10
+               ends at step 35 with the loss and parameters of an
+               uninterrupted run bit for bit, under
+               ``torch.use_deterministic_algorithms(True)``. The training
+               path's launches are added to the kernel rows they name.
 
 The last three lines are the kernel table (JSON), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -236,6 +260,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -258,6 +283,7 @@ BATCH_SIZES = (1, 8, 32, 128)
 INDEX_METHODS = ("kdtree", "rstar", "vafile")
 INDEX_BATCH_SIZES = (8, 128)
 HOST_BOUND_BATCH_SIZES = (8, 32)   # Ids and Mask on the two-phase paths
+HOST_CHECK_BATCH = 32     # Ids and Mask under a delta, after a compaction
 DELTA_METHODS = ("scan", "scan_vertical", "kdtree", "rstar", "vafile", "auto")
 ROWSCAN_BATCH = 8
 DELTA_ROWS = 100_000      # appended: 1% of the base
@@ -340,19 +366,24 @@ LONG_STEPS = 8
 LONG_TIMED_STEPS = 10
 # -- the lm_families phase: (arch, config changes), full width; the cuts in
 # depth are arctic-480b's (1 of 35 layers: 128 experts of 3 x 7168 x 4864
-# bf16 weights each, 28 GB) and llava-next-34b's (8 of 60 layers) --
+# bf16 weights each, 28 GB) and, to keep the script inside its time with the
+# train phase after it, every other model's: the host-bound decode's time
+# grows with depth, while each layer's shapes, kernel calls and checks are
+# the same at any depth (recurrentgemma-2b keeps one (rec, rec, attn) group
+# and its two-layer tail; seamless-m4t-large-v2 its 24 encoder layers) --
 FAMILY_SEED = 0
 FAMILIES = (
-    ("deepseek_moe_16b", dict(kv_cache_int8=True, kv_block_prune=LM_PRUNE,
+    ("deepseek_moe_16b", dict(n_layers=8, kv_cache_int8=True,
+                              kv_block_prune=LM_PRUNE,
                               kv_block_size=LM_BLOCK)),
     ("arctic_480b", dict(n_layers=1, kv_cache_int8=True,
                          kv_block_prune=LM_PRUNE, kv_block_size=LM_BLOCK)),
     ("llava_next_34b", dict(n_layers=8, kv_block_prune=LM_PRUNE,
                             kv_block_size=LM_BLOCK)),
-    ("h2o_danube_1_8b", dict(kv_cache_int8=True)),
-    ("recurrentgemma_2b", {}),
-    ("mamba2_780m", {}),
-    ("seamless_m4t_large_v2", {}),
+    ("h2o_danube_1_8b", dict(n_layers=6, kv_cache_int8=True)),
+    ("recurrentgemma_2b", dict(n_layers=5)),
+    ("mamba2_780m", dict(n_layers=8)),
+    ("seamless_m4t_large_v2", dict(n_layers=6)),
 )
 # h2o-danube's 4,096-slot ring: positions 4,090-4,100 cross its wrap
 RING_POS0, RING_STEPS = 4090, 11
@@ -382,6 +413,29 @@ LOGIT_ATOL = 0.5
 # (The margin test against each step's own logit difference can never fail:
 # margin >= 2 d forces the same argmax.)
 TOKEN_TIE = 0.25
+
+
+# -- the train phase: launch.train at smollm-360m's full width --
+TRAIN_ARCH = "smollm_360m"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 8, 512
+TRAIN_DIR = ROOT / "build" / "chip_train"     # git-ignored; removed after
+TRAIN_DEVICE = "cuda:0"
+# the admission filter's kernels (kernel table rows 5, 6 and 8): the planner
+# picks one of them for the pipeline's partial-match query
+ADMISSION_KERNELS = ("range_scan_tiles", "range_scan_vertical",
+                     "range_scan_visit")
+TRAIN_SERVE_REQUESTS, TRAIN_SERVE_NEW = 8, 16
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), for the step's
+# model-FLOP share
+PEAK_BF16_FLOPS = 989.4e12
+# Prefill's last-token logits against a decode of the same prompt, bf16 at
+# full width: the two compute the same function, but the full-sequence
+# attention and the one-token decode round to bf16 in other places, and the
+# difference grows through 32 layers; the bound is LOGIT_ATOL's, for the
+# same drift of a whole path (the reading is printed)
+PREFILL_B, PREFILL_LEN = 2, 64
+# Preemption and resume at the reduced config: the CPU test's schedule
+RESUME_STEPS, RESUME_EVERY, RESUME_AT, RESUME_SEQ = 35, 10, 25, 48
 
 
 class CheckFailed(AssertionError):
@@ -1673,14 +1727,15 @@ def dist_phase(eng, ds, oracle, queries):
             print(f"  compact on D={d_max}: {compact_s:.1f} s; "
                   f"{e8.dataset.n:,} live rows, shards of "
                   f"{e8.dist.n_local:,}", flush=True)
-        qs = queries[:128]
         for spec in result_specs():
+            qs = check_batch(queries, "scan", spec)
             got_plain = plain.query_batch(qs, method="scan", spec=spec)
             dist_checked(e8, d_max, qs, "scan", spec,
-                         f"{label} D={d_max} B=128 {spec}", got_plain,
+                         f"{label} D={d_max} B={len(qs)} {spec}", got_plain,
                          got_plain, orc, extra_scans=extra_scans)
             tally()
-        print(f"  {label}: D={d_max} B=128 under 8 specs equal to the plain "
+        print(f"  {label}: D={d_max} B=128 (Ids and Mask "
+              f"{HOST_CHECK_BATCH}) under 8 specs equal to the plain "
               f"meshed engine and numpy ({ORACLE_SAMPLE} queries); "
               f"{d_max}{' + 1' if extra_scans else ''} scan launches per "
               f"bucket ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -1725,16 +1780,30 @@ def path_qps(eng, queries) -> dict:
     return out
 
 
+def check_batch(queries, method: str, spec) -> list:
+    """The queries a check under a delta or after a compaction runs: the
+    row scan's first ``ROWSCAN_BATCH``; under Ids and Mask, host-bound at
+    ~2.5 s a call at B = 128, the first ``HOST_CHECK_BATCH``, as on the
+    two-phase paths; else the first 128."""
+    if method == "rowscan":
+        return queries[:ROWSCAN_BATCH]
+    return queries[:HOST_CHECK_BATCH if spec.kind in ("ids", "mask")
+                   else 128]
+
+
 def delta_checks(eng, eng_plain, oracle, queries, delta, label):
-    """Every method at B = 128 and the row scan at B = 8, under the eight
-    specs, checked like the main path."""
+    """Every method at B = 128 (Ids and Mask at ``HOST_CHECK_BATCH``) and
+    the row scan at B = 8, under the eight specs, checked like the main
+    path."""
     for method in (*DELTA_METHODS, "rowscan"):
-        qs = queries[:ROWSCAN_BATCH if method == "rowscan" else 128]
+        sizes = set()
         for spec in result_specs():
+            qs = check_batch(queries, method, spec)
+            sizes.add(len(qs))
             _, buckets = run_checked(eng, eng_plain, oracle, qs, method, spec,
                                      f"{label} {method} {spec}", delta=delta)
-        print(f"  {label}: {method} B={len(qs)} ok under 8 specs "
-              f"(last buckets {buckets})", flush=True)
+        print(f"  {label}: {method} B={'/'.join(map(str, sorted(sizes)))} ok "
+              f"under 8 specs (last buckets {buckets})", flush=True)
 
 
 def fold_time(eng, queries) -> float:
@@ -2363,40 +2432,67 @@ def decode_call(model, params, cache, tok, pos) -> tuple:
             kw.get("v_scale"))
 
 
+PROFILE_PAD_S = 0.1     # host seconds of quiet at each edge of a window
+
+
+def profile_window(fn, reps: int = TIMING_REPS,
+                   pad_s: float = PROFILE_PAD_S) -> list:
+    """torch.profiler over ``reps`` calls of ``fn`` after a warm-up step of
+    the same calls -> the window's events (``prof.events()``).
+
+    The profiler keeps only the device events whose device timestamps fall
+    inside the window's bounds on the host clock, and on the H100 the two
+    clocks disagree by up to milliseconds, more than ten calls of a small
+    kernel take: a window without margins then keeps none of its kernels,
+    or takes in the warm-up's. So each step is padded with ``pad_s``
+    seconds of quiet before its first launch and after its last kernel
+    ends: every kernel of the active step runs at least ``pad_s`` inside
+    the window and every kernel of the warm-up ends at least ``pad_s``
+    before it."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            time.sleep(pad_s)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+            prof.step()
+    return list(prof.events())
+
+
+def device_events(events) -> list:
+    """The device events of a window, less the step's own span."""
+    from torch.autograd import DeviceType
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep")]
+
+
 def device_kernels(fn, reps: int = TIMING_REPS,
-                   tries: int = 5) -> tuple[float, float, list]:
+                   tries: int = 10) -> tuple[float, float, list]:
     """torch.profiler over ``reps`` calls of ``fn`` after a warm one -> (the
     device ms per call: the summed durations of its device events, the
     device events per call, their names).
 
-    The profiler loses device events now and then: on the H100 a kernel's
-    device timestamp can read earlier than its own launch on the host
-    clock, and a kernel that then falls before the window's start is
-    dropped; a window can also come back with no kernel at all. Every call
-    of ``fn`` launches at least one kernel, so a window with fewer device
-    events than calls is incomplete: it is printed and taken again, up to
-    ``tries`` windows in all. A window with as many events as calls or
-    more is returned as it was read."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    Every call of ``fn`` launches at least one kernel, so a window
+    (``profile_window``) with fewer device events than calls is incomplete:
+    it is printed and taken again, up to ``tries`` windows in all. A window
+    with as many events as calls or more is returned as it was read. Late
+    in this script's process the first padded window of a call has come
+    back with no device event and the next one whole (the cause is not
+    known; a fresh process loses none, ``tools/profiler_probe.py``)."""
     fn()
     torch.cuda.synchronize()
     for window in range(1, tries + 1):
-        # a warm-up step first: without one the trace can miss more events
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            for _ in range(2):
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.name.startswith("ProfilerStep")]   # the step's span
+        events = profile_window(fn, reps)
+        dev = device_events(events)
         if len(dev) >= reps:
             break
         print(f"  profiler window {window} of {tries} kept {len(dev)} device "
-              f"events for {reps} calls: incomplete", flush=True)
+              f"events for {reps} calls ({len(events) - len(dev)} host "
+              f"events): incomplete", flush=True)
     us = sum(e.time_range.elapsed_us() for e in dev)
     return us / reps / 1e3, len(dev) / reps, sorted({e.name for e in dev})
 
@@ -3535,11 +3631,231 @@ def examples_phase() -> dict:
     return total
 
 
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 N per token (forward and backward of
+    every weight, the tied unembedding included) plus the attention's
+    score and value products, 2 x 2 B S^2 H hd per layer forward, three
+    times that with the backward; remat's recomputed forward is not model
+    work and is not counted."""
+    attn = 3 * 4 * batch * seq * seq * cfg.n_heads * cfg.resolved_head_dim
+    return 6 * n_params * batch * seq + attn * cfg.n_layers
+
+
+def train_full_part() -> tuple:
+    """(a) launch.train at full width -> (trainer, its checkpoint dir, its
+    kernel launches)."""
+    from repro_torch.core import MDRQEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.params import count_params
+
+    ckpt = TRAIN_DIR / "full"
+    ops.reset_kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = launch_train.run([
+        "--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+        "--ckpt-every", str(TRAIN_STEPS), "--ckpt-dir", str(ckpt),
+        "--device", TRAIN_DEVICE])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = ops.kernel_launches()
+    print(f"  launch.train: {secs:.1f} s wall (model init, the admission "
+          f"filter, {TRAIN_STEPS} steps, one checkpoint); kernel launches "
+          f"{launches}", flush=True)
+    check(any(launches.get(k, 0) for k in ADMISSION_KERNELS),
+          f"the admission filter launched none of {ADMISSION_KERNELS}")
+
+    pipe = tr.pipeline
+    plain = MDRQEngine(pipe.features, structures=("scan", "kdtree"),
+                       device=TRAIN_DEVICE, backend="torch")
+    want = plain.query(pipe.query, method="auto")
+    check(np.array_equal(pipe.admitted, want),
+          "admitted ids differ from the plain-backend engine's")
+    print(f"  admission: {pipe.admitted.size} of {pipe.cfg.n_pool} samples "
+          f"via {pipe.filter_stats.method}, equal to the plain backend's",
+          flush=True)
+
+    log = tr.metrics_log
+    losses = [r["loss"] for r in log]
+    check([r["step"] for r in log] == list(range(1, TRAIN_STEPS + 1)),
+          f"logged steps {[r['step'] for r in log]}")
+    check(all(np.isfinite(losses)), f"a non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss at step {TRAIN_STEPS} "
+          f"{losses[-1]} is not below step 1's {losses[0]}")
+    check(tr.ckpt.latest_step() == TRAIN_STEPS,
+          f"checkpoint steps {tr.ckpt.all_steps()}")
+
+    cfg = tr.model.cfg
+    step_s = float(np.median([r["sec"] for r in log[1:]]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = count_params(tr.params)
+    flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    print(f"  losses: step 1 {losses[0]:.4f}, step {TRAIN_STEPS} "
+          f"{losses[-1]:.4f}; all {[round(x, 4) for x in losses]}",
+          flush=True)
+    print(f"  train step ({cfg.name}, {n_params / 1e6:.1f} M parameters, "
+          f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, remat {cfg.remat}): "
+          f"{step_s * 1e3:.2f} ms/step (median of steps 2-{TRAIN_STEPS}), "
+          f"{tokens / step_s:.0f} tokens/s, peak allocated "
+          f"{peak / 1e9:.2f} GB, model FLOPs {flops:.4e} per step, "
+          f"model-FLOP share {flops / (step_s * PEAK_BF16_FLOPS):.4f} of "
+          f"{PEAK_BF16_FLOPS / 1e12:.1f} TFLOP/s dense bf16; "
+          f"{nvidia_smi_line()}", flush=True)
+    return tr, ckpt, launches
+
+
+def train_serve_part(tr, ckpt) -> dict:
+    """(b) launch.serve --ckpt-dir loads the last step; its greedy tokens
+    equal a BatchServer's built on the trainer's final parameters. -> the
+    served run's kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import BatchServer, admission_query
+
+    ops.reset_kernel_launches()
+    done = launch_serve.run([
+        "--arch", TRAIN_ARCH, "--ckpt-dir", str(ckpt), "--device", TRAIN_DEVICE,
+        "--kv-prune", str(LM_PRUNE), "--requests", str(TRAIN_SERVE_REQUESTS),
+        "--max-new", str(TRAIN_SERVE_NEW)])
+    launches = ops.kernel_launches()
+    print(f"  launch.serve --ckpt-dir: kernel launches {launches}",
+          flush=True)
+    check(launches.get("kv_visit_attention", 0) > 0,
+          "launch.serve --ckpt-dir launched no kv_visit_attention")
+    cfg = get_config(TRAIN_ARCH).replace(kv_block_prune=LM_PRUNE,
+                                         kv_block_size=32)
+    model = build_model(cfg, device=TRAIN_DEVICE)
+    want = BatchServer(model, tr.params, slots=4, max_len=128,
+                       device=model.device).serve(
+        launch_serve.requests(cfg, TRAIN_SERVE_REQUESTS, TRAIN_SERVE_NEW, 0),
+        admission_query())
+    check(done and [r.rid for r in done] == [r.rid for r in want],
+          f"served {[r.rid for r in done]} != {[r.rid for r in want]}")
+    for a, b in zip(done, want):
+        check(np.array_equal(a.output, b.output),
+              f"request {a.rid}: tokens {a.output} != {b.output}")
+    print(f"  served {len(done)} requests from the checkpoint: tokens equal "
+          f"to the trainer's parameters' ({sum(len(r.output) for r in done)} "
+          f"tokens)", flush=True)
+    return launches
+
+
+def train_prefill_part(tr) -> None:
+    """(c) prefill's last-token logits against decode_step over the same
+    prompt, at full width on the trained parameters."""
+    model = tr.model
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(SEED)
+    toks = torch.randint(0, model.cfg.vocab_size, (PREFILL_B, PREFILL_LEN),
+                         generator=gen, device=TRAIN_DEVICE, dtype=torch.int32)
+    with torch.inference_mode():
+        pre, _ = model.prefill(tr.params, {"tokens": toks})
+        cache = model.init_cache(PREFILL_B, PREFILL_LEN)
+        for t in range(PREFILL_LEN):
+            lg, cache = model.decode_step(
+                tr.params, cache, toks[:, t:t + 1],
+                torch.full((PREFILL_B,), t, dtype=torch.int32,
+                           device=TRAIN_DEVICE))
+    from repro_torch.kernels import ops
+    err, top = ops.device_get(((pre - lg).abs().amax(),
+                               lg[..., :model.cfg.vocab_size].abs().amax()))
+    same = ops.device_get((pre[0, 0].argmax() == lg[0, 0].argmax()))
+    print(f"  prefill vs decode over {PREFILL_LEN} tokens (B = {PREFILL_B}):"
+          f" last-token logits max |diff| {float(err):.4f} at |logit| <= "
+          f"{float(top):.2f} (limit {LOGIT_ATOL}); argmax of row 0 equal: "
+          f"{bool(same)}", flush=True)
+    check(float(err) <= LOGIT_ATOL,
+          f"prefill vs decode logits differ by {float(err)}")
+
+
+def train_resume_part() -> None:
+    """(d) a SimulatedPreemption at step RESUME_AT with checkpoints every
+    RESUME_EVERY ends at RESUME_STEPS with the loss and parameters of an
+    uninterrupted run, bit for bit (deterministic algorithms on)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, FilteredTokenPipeline
+    from repro_torch.models.params import leaves
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import (OptConfig, SimulatedPreemption, Trainer,
+                                   TrainerConfig)
+
+    cfg = get_config(TRAIN_ARCH).reduced()
+    model = build_model(cfg, device=TRAIN_DEVICE)
+    pipe = FilteredTokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=RESUME_SEQ, global_batch=8,
+        n_pool=2048, seed=0), device=TRAIN_DEVICE)
+    opt = OptConfig(peak_lr=1e-3, warmup_steps=5, decay_steps=100)
+    fail = {"n": 0}
+
+    def hook(step):
+        if step == RESUME_AT and fail["n"] == 0:
+            fail["n"] += 1
+            raise SimulatedPreemption()
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = []
+        for name, every, fh in (("preempted", RESUME_EVERY, hook),
+                                ("uninterrupted", 10 * RESUME_STEPS, None)):
+            tr = Trainer(model, pipe, opt, str(TRAIN_DIR / name),
+                         TrainerConfig(num_steps=RESUME_STEPS,
+                                       ckpt_every=every, log_every=1),
+                         failure_hook=fh, device=TRAIN_DEVICE)
+            tr.init_state()
+            t0 = time.perf_counter()
+            losses = {r["step"]: r["loss"] for r in tr.run()}
+            runs.append((tr, losses, time.perf_counter() - t0))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (a, la, sa), (b, lb, sb) = runs
+    check(fail["n"] == 1, "the preemption was not raised")
+    check(a.ckpt.all_steps() == [10, 20, 30],
+          f"checkpoints {a.ckpt.all_steps()}")
+    check(la[RESUME_STEPS] < la[1], "the reduced run's loss did not fall")
+    check(la[RESUME_STEPS] == lb[RESUME_STEPS],
+          f"resumed loss {la[RESUME_STEPS]!r} != uninterrupted "
+          f"{lb[RESUME_STEPS]!r}")
+    check(all(torch.equal(x, y) for x, y in zip(leaves(a.params),
+                                                leaves(b.params))),
+          "resumed parameters differ from the uninterrupted run's")
+    print(f"  preemption at step {RESUME_AT}, resumed from step 20: loss at "
+          f"step {RESUME_STEPS} {la[RESUME_STEPS]!r} bit-identical to the "
+          f"uninterrupted run's, parameters equal; {sa:.1f} s and {sb:.1f} s "
+          f"(reduced {cfg.name}, seq {RESUME_SEQ})", flush=True)
+
+
+def train_phase() -> dict:
+    """launch.train at full width, serving from its checkpoint, prefill
+    against decode, and the preemption resume at the reduced config. ->
+    the kernel launches of the training run and the served run."""
+    import shutil
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    try:
+        tr, ckpt, trained = train_full_part()
+        served = train_serve_part(tr, ckpt)
+        train_prefill_part(tr)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_resume_part()
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return {k: trained.get(k, 0) + served.get(k, 0)
+            for k in sorted({*trained, *served})}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 2
+    # cuBLAS reads this when its first handle is made: the train phase's
+    # resume check turns on deterministic algorithms, which need it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.core import MDRQEngine
     from repro_torch.data import gmrqb
     from repro_torch.kernels import _build, ops
@@ -3681,6 +3997,14 @@ def main() -> int:
 
     with phase("lm_families"):
         lm_families_phase(rows)
+
+    with phase("train"):
+        launches = train_phase()
+        print(f"  kernel launches on the training path: {launches}",
+              flush=True)
+        # rows 5, 6 or 8 (the admission filter) and row 12 (the served run)
+        for r in rows:
+            r["launches"] += launches.get(r["name"], 0)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,10 +1,10 @@
-"""Shared layer library, serving half: RMSNorm, RoPE, GQA attention (decode
-with full, ring and int8 caches and the zone-map KV block prune; the
-full-sequence self-attention the encoder runs; cross-attention), SwiGLU MLP,
-embedding/unembed.
+"""Shared layer library: RMSNorm, RoPE, GQA attention (decode with full, ring
+and int8 caches and the zone-map KV block prune; the full-sequence
+self-attention of the encoder and of the training forward; cross-attention),
+SwiGLU MLP, embedding/unembed and the training loss.
 
-Ports the functions of ``repro/models/layers.py`` that decode serving runs,
-as plain functions on tensors. Conventions, as in the reference:
+Ports the functions of ``repro/models/layers.py`` that decode serving and
+the dense training forward run, as plain functions on tensors. Conventions, as in the reference:
   * a layer's parameters are a dict of tensors; weights and activations in
     the config's dtype, norm scales and softmax/norm internals in float32;
   * decode caches are full ``(B, S_slots, KV, hd)`` per layer, or ring
@@ -447,3 +447,20 @@ def unembed(p, x: torch.Tensor, tie: bool) -> torch.Tensor:
     if tie:
         return (x @ p["table"].T).float()
     return (x @ p["unembed"]).float()
+
+
+def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
+              vocab_size: int) -> torch.Tensor:
+    """Mean token cross-entropy in float32 over every label position;
+    logits may be vocab-padded (labels < vocab_size).
+
+    Padded vocabulary columns are filled with ``NEG`` (finite, dtype-derived)
+    so they carry no probability mass, as in the reference.
+    """
+    logits = logits.float()
+    if logits.shape[-1] > vocab_size:
+        vocab_ids = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(vocab_ids < vocab_size, logits, NEG)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()

@@ -68,5 +68,25 @@ def leaves(tree):
         yield tree
 
 
+def map_tree(tree, fn):
+    """``tree`` with each leaf replaced by ``fn(leaf)``; dicts and lists
+    keep their structure."""
+    if isinstance(tree, dict):
+        return {k: map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+def unflatten(tree, flat):
+    """The structure of ``tree`` filled with ``flat`` (in ``leaves``
+    order)."""
+    it = iter(flat)
+    out = map_tree(tree, lambda _: next(it))
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
 def count_params(tree) -> int:
     return sum(t.numel() for t in leaves(tree))

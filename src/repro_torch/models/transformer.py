@@ -1,23 +1,31 @@
-"""Decoder-only LM, decode-serving half, for the dense / moe / ssm / hybrid
-/ vlm / audio (decoder-only) families.
+"""Decoder-only LM for the dense / moe / ssm / hybrid / vlm / audio
+(decoder-only) families: decode serving for every family, the training
+forward for the families whose layers are all ``dense_layer_train``.
 
 Ports ``DecoderLM`` of ``repro/models/transformer.py``: ``init``,
 ``init_cache``, ``decode_step`` and ``vocab_padded``, with the reference's
-per-layer blocks. The reference scans a stacked layer tree; here the layers
-are a Python list of per-layer parameter dicts and the loop is a Python loop
-(PyTorch runs eagerly). Hybrid (Griffin) stacks are a list of (rec, rec,
-attn) ``groups`` plus a ``tail`` of recurrent layers, RecurrentGemma's 26 =
-8 * 3 + 2. The cache keeps the reference's stacked layouts — ``k``/``v``
-(L, B, S, KV, hd) (int8 with ``k_scale``/``v_scale`` (L, B, S, KV, 1)
-float32 under ``kv_cache_int8``; S = min(slots, window) for a ring), the
-zone maps ``kmin``/``kmax`` (L, B, nb, KV, hd) float32 under
+per-layer blocks, and ``forward``/``loss_fn``/``prefill`` for ``dense``,
+``vlm`` and ``audio``. The reference scans a stacked layer tree; here the
+layers are a Python list of per-layer parameter dicts and the loop is a
+Python loop (PyTorch runs eagerly). Hybrid (Griffin) stacks are a list of
+(rec, rec, attn) ``groups`` plus a ``tail`` of recurrent layers,
+RecurrentGemma's 26 = 8 * 3 + 2. The cache keeps the reference's stacked
+layouts — ``k``/``v`` (L, B, S, KV, hd) (int8 with ``k_scale``/``v_scale``
+(L, B, S, KV, 1) float32 under ``kv_cache_int8``; S = min(slots, window) for
+a ring), the zone maps ``kmin``/``kmax`` (L, B, nb, KV, hd) float32 under
 ``kv_block_prune``; the SSM states under ``layers``; the hybrid's per-group
 recurrent states and local-attention ring, and its tail's states — and
 ``decode_step`` updates it in place.
 
-A vlm's modality prefix enters only the training/prefill forward; decode
-embeds tokens alone, as the reference's does. The ``forward``/``loss_fn``/
-``prefill`` entry points come with the training slice.
+A vlm's modality prefix (``batch["prefix_embeds"]``) enters only the
+training/prefill forward; decode embeds tokens alone, as the reference's
+does. ``cfg.remat != "none"`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``; no value
+changes). ``scan_layers``, ``seq_shard_resid`` and the reference's
+``shardctx`` constraints place a layer loop and its activations on a TPU
+mesh; on one device they change nothing, so they have no counterpart here.
+The training forward of the moe, ssm and hybrid families raises
+``NotImplementedError``: it is the next training slice.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import numerics
 from repro_torch.models import layers as L
@@ -84,6 +93,24 @@ def _attn_window(cfg) -> Optional[int]:
     return cfg.sliding_window
 
 
+# families whose every layer is ``dense_layer_train``, and the attention
+# window each gives it (the reference's ``_run_stack`` body table)
+TRAIN_WINDOW = {"dense": _attn_window, "vlm": lambda cfg: None,
+                "audio": lambda cfg: None}
+NEXT_TRAIN_SLICE = ("ROADMAP queue 1 item 4's next training slice (MoE with "
+                    "its aux loss, ssd_chunked / ssm_train, rglru_train and "
+                    "the hybrid groups, EncDecLM.forward / loss_fn / "
+                    "prefill)")
+
+
+def dense_layer_train(lp, x, positions, cfg, window=None):
+    """x + attention + MLP over the whole sequence -> (x, zero aux loss)."""
+    x = x + L.mha_train(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                        positions, cfg, window=window)
+    x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+    return x, torch.zeros((), dtype=F32, device=x.device)
+
+
 def _put(cache: dict, i: int, new: dict) -> None:
     """Write layer ``i``'s new state tensors into the stacked cache."""
     for k, v in new.items():
@@ -132,6 +159,71 @@ class DecoderLM:
             params["layers"] = [layer_init(cfg, generator, dev)
                                 for _ in range(cfg.n_layers)]
         return params
+
+    # -- train forward ------------------------------------------------------
+    def _embed_inputs(self, params, batch):
+        """Token (+ optional modality-prefix) embedding -> (x, positions
+        0..S_total-1)."""
+        cfg = self.cfg
+        x = L.embed(params["embed"], batch["tokens"])
+        if cfg.n_prefix_embeds:
+            pre = batch["prefix_embeds"].to(x.dtype)  # (B, P, D) stub frontend
+            x = torch.cat([pre, x], dim=1)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+        return x, positions
+
+    def forward(self, params, batch):
+        """(B, S) tokens -> ((B, S_total, vocab_pad) float32 logits, aux)."""
+        cfg = self.cfg
+        x, positions = self._embed_inputs(params, batch)
+        x, aux = self._run_stack(params, x, positions)
+        x = L.rmsnorm(params["final_ln"], x, cfg.norm_eps)
+        return L.unembed(params["embed"], x, cfg.tie_embeddings), aux
+
+    def _run_stack(self, params, x, positions):
+        cfg = self.cfg
+        if cfg.family not in TRAIN_WINDOW:
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} family's training forward is "
+                f"{NEXT_TRAIN_SLICE}")
+        window = TRAIN_WINDOW[cfg.family](cfg)
+        # A Python loop over the layer list: the reference's scan_layers,
+        # seq_shard_resid and shardctx constraints shape a TPU program and
+        # its mesh placement, and have no effect on one device.
+        remat = cfg.remat != "none" and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=F32, device=x.device)
+        for lp in params["layers"]:
+            def body(x, lp=lp):
+                return dense_layer_train(lp, x, positions, cfg, window=window)
+            x, aux_l = (checkpoint(body, x, use_reentrant=False) if remat
+                        else body(x))
+            aux = aux + aux_l
+        return x, aux
+
+    def loss_fn(self, params, batch):
+        """-> (total loss, {"loss", "aux_loss"}); with a modality prefix the
+        loss is taken on the text suffix only."""
+        cfg = self.cfg
+        logits, aux = self.forward(params, batch)
+        if cfg.n_prefix_embeds:
+            logits = logits[:, cfg.n_prefix_embeds:, :]
+        loss = L.xent_loss(logits, batch["labels"], cfg.vocab_size)
+        return loss + aux, {"loss": loss, "aux_loss": aux}
+
+    def prefill(self, params, batch):
+        """Inference forward over the full prompt -> (last-token logits (B,
+        1, vocab_pad) float32, aux). ``cfg.prefill_last_only`` unembeds the
+        final position alone; otherwise the full logits are sliced."""
+        cfg = self.cfg
+        if not cfg.prefill_last_only:
+            logits, aux = self.forward(params, batch)
+            return logits[:, -1:, :], aux
+        x, positions = self._embed_inputs(params, batch)
+        x, aux = self._run_stack(params, x, positions)
+        x = L.rmsnorm(params["final_ln"], x[:, -1:, :], cfg.norm_eps)
+        return L.unembed(params["embed"], x, cfg.tie_embeddings), aux
 
     # -- serving ------------------------------------------------------------
     def init_cache(self, batch: int, slots: int, dtype=None) -> dict:

@@ -6,9 +6,10 @@ from repro_torch.serve.mdrq_server import MDRQServer, ServerStats, Ticket
 from repro_torch.serve.pipeline import (Overloaded, PipelinedMDRQServer,
                                         PipelineTicket, WarmupReport,
                                         serve_pipelined)
-from repro_torch.serve.serve_step import greedy_sample, make_serve_step
+from repro_torch.serve.serve_step import (greedy_sample, make_prefill,
+                                          make_serve_step)
 
 __all__ = ["MDRQServer", "ServerStats", "Ticket", "BatchServer", "Request",
-           "admission_query", "greedy_sample", "make_serve_step",
+           "admission_query", "greedy_sample", "make_prefill", "make_serve_step",
            "Overloaded", "PipelinedMDRQServer", "PipelineTicket",
            "WarmupReport", "serve_pipelined"]

@@ -1,6 +1,6 @@
-"""Serving step: single-token decode and greedy sampling.
+"""Serving steps: prefill, single-token decode and greedy sampling.
 
-Ports ``make_serve_step`` and ``greedy_sample`` of
+Ports ``make_serve_step``, ``make_prefill`` and ``greedy_sample`` of
 ``repro/serve/serve_step.py``. The reference jits the step and donates the
 cache; here the step runs eagerly and ``decode_step`` updates the cache in
 place, so steady-state decode allocates no new cache either.
@@ -19,6 +19,15 @@ def make_serve_step(model) -> Callable:
         return model.decode_step(params, cache, tokens, pos)
 
     return serve_step
+
+
+def make_prefill(model) -> Callable:
+    """(params, batch) -> (last-token logits, aux)."""
+
+    def prefill(params, batch):
+        return model.prefill(params, batch)
+
+    return prefill
 
 
 def greedy_sample(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:

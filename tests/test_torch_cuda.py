@@ -44,10 +44,13 @@ raises), and every certified path's ``launch_batch`` and ``finalize``,
 frozen and under a delta, synchronize only in ``ops.device_get``, at the
 counts ``BUDGET_torch.json`` certifies; so do ``ColumnarScan.mask_batch``,
 ``mask_batch_partial`` and ``count_batch`` (one counted op, one counted
-sync each).
+sync each). The training path: one reduced float32 train step on the card
+against the same step on the CPU, and the data pipeline's admission filter
+on the card against an engine on the plain backend.
 """
 import contextlib
 import json
+import time
 from pathlib import Path
 
 import numpy as np
@@ -637,23 +640,26 @@ def test_kv_visit_kernel_matches_plain(dev, b, kv, g, hd, nb, bs, n_visit, dtype
 
 def _device_kernels(fn, reps=3, tries=5):
     """(device kernels per call of ``fn``, their names) by torch.profiler.
-    The profiler can drop a device event (its device timestamp before the
-    window's start): a window with fewer device events than calls is
-    incomplete and taken again, up to ``tries`` windows (as
-    ``chip_smoke.device_kernels``)."""
+    The profiler drops a device event whose device timestamp falls outside
+    the window on the host clock, and the two clocks disagree by up to
+    milliseconds: each step is padded with 0.1 s of quiet at both edges,
+    and a window with fewer device events than calls is incomplete and
+    taken again, up to ``tries`` windows (as ``chip_smoke.device_kernels``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        # a warm-up step first: without one the trace can miss more events
+        # a warm-up step first, its kernels ended before the active one
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
             for _ in range(2):
+                time.sleep(0.1)
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
+                time.sleep(0.1)
                 prof.step()
         names = [e.name for e in prof.events()
                  if e.device_type == DeviceType.CUDA
@@ -1326,3 +1332,62 @@ def test_columnar_batch_calls_sync_only_where_counted(dev, call):
         for k, q in enumerate(qs):
             np.testing.assert_array_equal(np.nonzero(got[k])[0],
                                           numpy_scan_ids(ds.cols, q))
+
+
+# -- the training path on the card -------------------------------------------
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One reduced smollm-360m float32 train step (the same weights, batch 0
+    of the pipeline) on the card against the CPU: loss and gradient norm
+    within 1e-5 relative (float32 sums in another order), every new
+    parameter and master weight within 1e-5 (the CPU test's spread against
+    the reference was 1.06e-6), the step count and learning rate equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, FilteredTokenPipeline
+    from repro_torch.models.params import leaves
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import OptConfig, init_opt_state, make_train_step
+    cfg = get_config("smollm_360m").reduced().replace(param_dtype="float32")
+    batch = FilteredTokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=32, global_batch=8, n_pool=1024,
+        seed=1), device="cpu").batch(0)
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+
+    def run(device):
+        model = build_model(cfg, device=device)
+        p = [t.to(model.device) for t in leaves(params)]
+        from repro_torch.models.params import unflatten
+        p = unflatten(params, p)
+        step = make_train_step(model, OptConfig(warmup_steps=10))
+        return step(p, init_opt_state(p),
+                    {k: torch.as_tensor(v, device=model.device)
+                     for k, v in batch.items()})
+
+    got, want = run(dev), run("cpu")
+    for k in ("loss", "total_loss", "grad_norm"):
+        assert float(got[2][k]) == pytest.approx(float(want[2][k]), rel=1e-5)
+    assert got[2]["lr"] == want[2]["lr"] and got[1]["step"] == 1
+    for a, b in zip([*leaves(got[0]), *leaves(got[1]["master"])],
+                    [*leaves(want[0]), *leaves(want[1]["master"])]):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+
+
+def test_pipeline_admits_on_the_card_as_the_plain_backend(dev):
+    """The admission filter on the card (its kernel launched: the columnar
+    scan, its vertical variant or the kd-tree's visit, whichever the
+    planner picks) admits the ids an engine on the plain backend admits."""
+    from repro_torch.data import DataConfig, FilteredTokenPipeline
+    pipe = FilteredTokenPipeline(DataConfig(vocab_size=512, seq_len=16,
+                                            global_batch=4, n_pool=16384),
+                                 device=dev)
+    plain = MDRQEngine(pipe.features, structures=("scan", "kdtree"),
+                       device=dev, backend="torch")
+    want = plain.query(pipe.query, method="auto")
+    assert plain.last_stats.method == pipe.filter_stats.method
+    np.testing.assert_array_equal(pipe.admitted, want)
+    launches = ops.kernel_launches()
+    assert any(launches.get(k, 0) for k in (
+        "range_scan_tiles", "range_scan_vertical", "range_scan_visit")), \
+        launches

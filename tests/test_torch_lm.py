@@ -280,7 +280,7 @@ def test_build_model_refuses_what_is_not_ported(arch, kw, match):
         build_model(cfg, device="cpu")
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("qwen3_8b").reduced()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -288,6 +288,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
     model = build_model(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchServer(model, {}, slots=1, max_len=8)
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import OptConfig, Trainer
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(model, None, OptConfig(), str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "qwen3_8b", "--reduced", "--ckpt-dir",
+                           str(tmp_path)])
 
 
 def _requests(req_cls, n, vocab, seed):

@@ -23,22 +23,19 @@ REF, PORT = SRC / "repro", SRC / "repro_torch"
 
 ITEM3 = "ROADMAP queue 1 item 3: the benchmark PR"
 ITEM4 = "ROADMAP queue 1 item 4: the rest of the LM framework"
-TRAIN = "ROADMAP queue 1 item 4: the training slice"
+TRAIN = ("ROADMAP queue 1 item 4: the next training slice (MoE, Mamba-2, "
+         "RG-LRU and the hybrid, the encoder-decoder)")
 ITEM5 = "ROADMAP queue 1 item 5: the mesh and compile tools"
 
 MISSING_MODULES = {
-    "data/pipeline.py": ITEM4,
     "launch/dryrun.py": ITEM5,
     "launch/mesh.py": ITEM5,
     "launch/perf.py": ITEM5,
-    "launch/train.py": ITEM4,
     "models/shardctx.py": ITEM5,
-    "train/__init__.py": ITEM4,
-    "train/checkpoint.py": ITEM4,
-    "train/optimizer.py": ITEM4,
-    "train/train_step.py": ITEM4,
-    "train/trainer.py": ITEM4,
 }
+
+_ZERO1 = ("JAX construct (ZeRO-1 PartitionSpecs of the optimizer state over "
+          "a TPU mesh axis); one device has nothing to shard: " + ITEM5)
 
 _AOT = ("JAX construct (AOT compile cache / retrace probe); port: the warm "
         "keys of ops.counted and PipelinedMDRQServer.warmup")
@@ -62,7 +59,6 @@ MISSING_NAMES = {
         "use_xla": _BACKEND, "default_interpret": _BACKEND},
     "models/encdec.py": {n: TRAIN for n in (
         "EncDecLM.forward", "EncDecLM.loss_fn", "EncDecLM.prefill")},
-    "models/layers.py": {"xent_loss": TRAIN},
     "models/params.py": {n: ITEM4 for n in (
         "DEFAULT_RULES", "Param", "abstract_like", "is_param", "pspec_tree",
         "sharding_tree", "split_tree", "stack_layer_params")},
@@ -72,10 +68,12 @@ MISSING_NAMES = {
     "models/rglru.py": {"rglru_train": TRAIN},
     "models/ssm.py": {"ssd_chunked": TRAIN, "ssm_train": TRAIN},
     "models/transformer.py": {n: TRAIN for n in (
-        "DecoderLM.forward", "DecoderLM.loss_fn", "DecoderLM.prefill",
-        "dense_layer_train", "moe_layer_train", "rec_layer_train",
-        "ssm_layer_train")},
-    "serve/serve_step.py": {"make_prefill": TRAIN},
+        "moe_layer_train", "rec_layer_train", "ssm_layer_train")},
+    "train/optimizer.py": {"zero1_pspec": _ZERO1, "opt_state_pspecs": _ZERO1},
+    "train/train_step.py": {
+        "compressed_psum": "JAX construct (an int8 all-reduce over a "
+                           "shard_map axis name); port: a DataMesh "
+                           "collective (core/distributed.py), " + ITEM5},
 }
 
 
