@@ -159,7 +159,12 @@ non-zero without printing a result:
                its ``main`` on cuda:0 at its default size: its own asserts
                hold (every path, batch form and spec agree), and it launched
                a scan, a visit and a VA-filter kernel; its wall seconds and
-               kernel launches are printed.
+               kernel launches are printed. Then the two LM examples:
+               ``train_lm_torch.py`` (demo preset, 20 steps: finite logged
+               losses) and ``serve_lm_torch.py`` (120 warm-up steps, 12
+               requests: the served ids are those whose features satisfy
+               its admission query in numpy, 8 tokens each), each launching
+               an admission kernel (row 5, 6 or 8).
  17. lm      — the LM decode-serving path, after both engines are freed.
                Qwen3-8B at full width, 4 of its 36 layers (d_model 4096,
                random bf16 weights from a torch.Generator, seed 0):
@@ -247,8 +252,23 @@ non-zero without printing a result:
                ``SimulatedPreemption`` at step 25 with checkpoints every 10
                ends at step 35 with the loss and parameters of an
                uninterrupted run bit for bit, under
-               ``torch.use_deterministic_algorithms(True)``. The training
-               path's launches are added to the kernel rows they name.
+               ``torch.use_deterministic_algorithms(True)``. (e)
+               deepseek-moe-16b at its published widths (d 2048, 64 experts
+               top-6 + 2 shared, vocab 102,400), 2 of its 28 layers, and
+               (f) seamless-m4t-large-v2 at its published widths and depth
+               (24 + 24 layers, d 1024, vocab 256,206 tied, 128 stub frames
+               a row), each 10 Trainer steps of 8 x 512 on the
+               MDRQ-filtered pipeline, no checkpoint: finite losses, step
+               10's below step 1's, the MoE's aux loss positive and finite
+               at every step, an admission kernel launched; printed as (a)
+               (the model FLOPs of the active parameters and the encoder's
+               tokens, ``train_flops``). (e) then serves 8 requests from
+               the trained parameters with an int8 cache pruned to 4 of
+               32-key blocks, every ``kv_visit_attention[int8]`` call
+               within ``KV_RTOL`` of its plain version; (f) holds prefill
+               against decode as (c), after ``fill_cross_cache``. The
+               training path's launches are added to the kernel rows they
+               name.
 
 The last three lines are the kernel table (JSON), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -326,6 +346,9 @@ BEHIND_CALLS = 4
 # The port's MDRQ examples, each run at its default size, and the kernels
 # each must launch (the scans, the visits, the VA filter).
 EXAMPLES = ("quickstart_torch", "gmrqb_demo_torch", "batched_queries_torch")
+# the LM examples: train_lm_torch for a short run of its demo preset, then
+# serve_lm_torch as it is; each runs the admission filter (ADMISSION_KERNELS)
+LM_EXAMPLE_STEPS = 20
 EXAMPLE_KERNELS = (("range_scan_tiles", "multi_scan_tiles"),
                    ("range_scan_visit", "multi_scan_visit"),
                    ("va_filter_packed", "multi_va_filter_packed"))
@@ -436,6 +459,16 @@ PEAK_BF16_FLOPS = 989.4e12
 PREFILL_B, PREFILL_LEN = 2, 64
 # Preemption and resume at the reduced config: the CPU test's schedule
 RESUME_STEPS, RESUME_EVERY, RESUME_AT, RESUME_SEQ = 35, 10, 25, 48
+# The train phase's MoE and encoder-decoder parts: published widths, bf16,
+# random weights (seed 0), TRAIN_BATCH x TRAIN_SEQ through the Trainer on the
+# MDRQ-filtered pipeline, no checkpoint (a full-width save would be 22-25 GB;
+# the round trip of these trees is held on the CPU). deepseek-moe-16b is cut
+# to 2 of its 28 layers (1.60 B parameters, ~25.5 GB of weights and AdamW
+# state); seamless-m4t-large-v2 keeps all 24 + 24 (1.77 B, ~28 GB); its
+# stub frames are the reference's max(8, seq // 4)
+TRAIN_FAMILIES = (("deepseek_moe_16b", dict(n_layers=2)),
+                  ("seamless_m4t_large_v2", {}))
+TRAIN_FAMILY_STEPS = 10
 
 
 class CheckFailed(AssertionError):
@@ -3608,37 +3641,124 @@ def load_example(name: str):
     return mod
 
 
-def examples_phase() -> dict:
-    """Each port example's ``main`` on cuda:0 at its default size: its own
-    asserts hold, and it launched a scan, a visit and a VA-filter kernel.
-    -> kernel launches summed over the examples."""
+def lm_example_checks(name: str, mod, out: dict) -> None:
+    """An LM example's summary: train_lm_torch ran every step with finite
+    logged losses; serve_lm_torch served exactly the requests whose features
+    satisfy its admission query (numpy), each its max_new tokens."""
+    if name == "train_lm_torch":
+        losses = [r["loss"] for r in out["log"]]
+        check(out["step"] == LM_EXAMPLE_STEPS and out["resumed_from"] is None
+              and losses and all(np.isfinite(losses)),
+              f"train_lm_torch: {out}")
+        print(f"  train_lm_torch: {out['params']:,} parameters, losses "
+              f"{[round(x, 4) for x in losses]}", flush=True)
+        return
+    want = {rid for rid, f in out["features"].items()
+            if mod.MIN_PRIORITY <= f[0] <= 1.0 and 0.0 <= f[3] <= mod.MAX_COST}
+    check(set(out["served"]) == want,
+          f"serve_lm_torch served {sorted(out['served'])} != {sorted(want)}")
+    check(all(t.shape == (mod.MAX_NEW,) for t in out["served"].values()),
+          "serve_lm_torch: an output of another length")
+    check(np.all(np.isfinite(out["losses"])), "serve_lm_torch: a loss")
+    print(f"  serve_lm_torch: served {len(want)} of {len(out['features'])} "
+          f"requests, {mod.MAX_NEW} tokens each; warm-up loss "
+          f"{out['losses'][0]:.3f} -> {out['losses'][-1]:.3f}", flush=True)
+
+
+def run_examples(runs) -> dict:
+    """Each (example, argv, kernel groups) of ``runs``: its ``main`` on the
+    card; it launched a kernel of each group; an LM example's summary is
+    checked (``lm_example_checks``). -> kernel launches summed."""
     from repro_torch.kernels import ops
     total: dict[str, int] = {}
-    for name in EXAMPLES:
+    for name, argv, groups in runs:
         ops.reset_kernel_launches()
         t0 = time.perf_counter()
-        load_example(name).main(["--device", "cuda:0"])
+        mod = load_example(name)
+        out = mod.main(argv)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = ops.kernel_launches()
         print(f"  {name}: {secs:.1f} s wall; kernel launches {launches}",
               flush=True)
-        for group in EXAMPLE_KERNELS:
+        for group in groups:
             check(any(launches.get(k, 0) for k in group),
                   f"{name} launched none of {group}")
+        if name.endswith("_lm_torch"):
+            lm_example_checks(name, mod, out)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
     return total
 
 
-def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
-    """Model FLOPs of one train step: 6 N per token (forward and backward of
-    every weight, the tied unembedding included) plus the attention's
-    score and value products, 2 x 2 B S^2 H hd per layer forward, three
-    times that with the backward; remat's recomputed forward is not model
-    work and is not counted."""
-    attn = 3 * 4 * batch * seq * seq * cfg.n_heads * cfg.resolved_head_dim
-    return 6 * n_params * batch * seq + attn * cfg.n_layers
+def lm_examples_part() -> dict:
+    """``train_lm_torch`` (its demo preset, ``LM_EXAMPLE_STEPS`` steps, a
+    checkpoint directory under ``build/`` removed after) and
+    ``serve_lm_torch`` on cuda:0, each launching an admission kernel. ->
+    their kernel launches."""
+    import shutil
+    ckpt = ROOT / "build" / "chip_examples"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        return run_examples([
+            ("train_lm_torch", ["--device", "cuda:0", "--steps",
+                                str(LM_EXAMPLE_STEPS), "--ckpt-dir",
+                                str(ckpt)], (ADMISSION_KERNELS,)),
+            ("serve_lm_torch", ["--device", "cuda:0"], (ADMISSION_KERNELS,))])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def examples_phase() -> dict:
+    """Each port example's ``main`` on cuda:0: the MDRQ examples at their
+    default size (their own asserts hold, and each launched a scan, a visit
+    and a VA-filter kernel), then the two LM examples
+    (``lm_examples_part``). -> kernel launches summed over the examples."""
+    total = run_examples([(name, ["--device", "cuda:0"], EXAMPLE_KERNELS)
+                          for name in EXAMPLES])
+    for k, v in lm_examples_part().items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int,
+                enc_len: int = 0) -> float:
+    """Model FLOPs of one train step: 6 per weight per token that meets it
+    (2 forward, 4 backward) plus the attention's score and value products,
+    2 x 2 x (queries x keys) x H hd per layer forward and three times that
+    with the backward, every product over the full square (as 2 x 2 B S^2
+    H hd); remat's recomputed forward is not model work and is not counted.
+
+    - dense: 6 N per token of the B S, N = ``n_params`` (every weight, the
+      tied unembedding included), plus 12 B S^2 H hd per layer;
+    - moe: 6 N_active per token, N_active = ``cfg.param_counts()``'s active
+      count: the attention, the router, the top-k of E experts and the
+      shared experts (and the dense residual FFN) per layer, and both
+      embedding tables; plus 12 B S^2 H hd per layer;
+    - the encoder-decoder (``enc_len`` frames a row): 6 x (the encoder's
+      weights) per encoder token (B enc_len), 6 x (each decoder layer's
+      self-attention, cross-attention query and output projections and MLP,
+      and the tied unembedding) per decoder token (B S), 6 x (each decoder
+      layer's cross-attention key and value projections, which read the
+      encoder output) per encoder token; plus 12 H hd x (B enc_len^2 per
+      encoder layer, B S^2 + B S enc_len per decoder layer)."""
+    h_hd = cfg.n_heads * cfg.resolved_head_dim
+    if not enc_len:
+        n = n_params if cfg.moe is None else cfg.param_counts()["active"]
+        return (6 * n * batch * seq
+                + 3 * 4 * batch * seq * seq * h_hd * cfg.n_layers)
+    d, kv = cfg.d_model, cfg.n_kv_heads * cfg.resolved_head_dim
+    mlp = 3 * d * cfg.d_ff
+    enc_w = cfg.encoder_layers * (2 * d * h_hd + 2 * d * kv + mlp)
+    dec_w = cfg.n_layers * (2 * d * h_hd + 2 * d * kv + 2 * d * h_hd + mlp) \
+        + cfg.vocab_size * d
+    cross_kv = cfg.n_layers * 2 * d * kv
+    weights = 6 * (batch * seq * dec_w
+                   + batch * enc_len * (enc_w + cross_kv))
+    attn = 3 * 4 * h_hd * batch * (cfg.encoder_layers * enc_len * enc_len
+                                   + cfg.n_layers * (seq * seq
+                                                     + seq * enc_len))
+    return weights + attn
 
 
 def train_full_part() -> tuple:
@@ -3745,16 +3865,25 @@ def train_serve_part(tr, ckpt) -> dict:
     return launches
 
 
-def train_prefill_part(tr) -> None:
+def train_prefill_part(tr, frames: torch.Tensor | None = None) -> None:
     """(c) prefill's last-token logits against decode_step over the same
-    prompt, at full width on the trained parameters."""
+    prompt, at full width on the trained parameters; an encoder-decoder's
+    prefill takes ``frames`` and its decode their cross cache
+    (``fill_cross_cache``)."""
     model = tr.model
     gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(SEED)
     toks = torch.randint(0, model.cfg.vocab_size, (PREFILL_B, PREFILL_LEN),
                          generator=gen, device=TRAIN_DEVICE, dtype=torch.int32)
+    batch = {"tokens": toks}
     with torch.inference_mode():
-        pre, _ = model.prefill(tr.params, {"tokens": toks})
-        cache = model.init_cache(PREFILL_B, PREFILL_LEN)
+        if frames is None:
+            cache = model.init_cache(PREFILL_B, PREFILL_LEN)
+        else:
+            batch["enc_embeds"] = frames
+            cache = model.init_cache(PREFILL_B, PREFILL_LEN,
+                                     enc_len=frames.shape[1])
+            model.fill_cross_cache(tr.params, cache, frames)
+        pre, _ = model.prefill(tr.params, batch)
         for t in range(PREFILL_LEN):
             lg, cache = model.decode_step(
                 tr.params, cache, toks[:, t:t + 1],
@@ -3828,10 +3957,184 @@ def train_resume_part() -> None:
           f"(reduced {cfg.name}, seq {RESUME_SEQ})", flush=True)
 
 
+class FramedPipeline:
+    """The MDRQ-filtered pipeline's tokens and labels with the
+    encoder-decoder's stub frame embeddings beside them: (batch,
+    ``frames``, d) float32 drawn from numpy seed (SEED, step), so a step's
+    batch is a function of the step, as the pipeline's is."""
+
+    def __init__(self, pipe, frames: int, d_model: int):
+        self.pipe, self.frames, self.d_model = pipe, frames, d_model
+
+    def batch(self, step: int) -> dict:
+        out = self.pipe.batch(step)
+        rng = np.random.default_rng((SEED, step))
+        out["enc_embeds"] = rng.normal(size=(
+            out["tokens"].shape[0], self.frames, self.d_model)).astype(
+                np.float32)
+        return out
+
+
+def train_family_part(arch: str, changes: dict) -> tuple:
+    """(e) / (f) A model of another family at its published widths
+    trained TRAIN_FAMILY_STEPS steps through the Trainer on the MDRQ-filtered
+    pipeline (the encoder-decoder's with stub frames): finite losses, the
+    last below the first, a positive finite MoE aux loss at every step (zero
+    for the encoder-decoder), the admission kernel launched; ms/step,
+    tokens/s, peak memory and the model-FLOP share printed. -> (trainer,
+    kernel launches, the prefill check's frames or None)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, FilteredTokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import count_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import OptConfig, Trainer, TrainerConfig
+
+    base = get_config(arch)
+    cfg = base.replace(**changes)
+    ops.reset_kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=TRAIN_DEVICE)
+    pipe = FilteredTokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, n_pool=16384, seed=SEED),
+        device=model.device)
+    enc_len = max(8, TRAIN_SEQ // 4) if cfg.encoder_layers else 0
+    if enc_len:
+        pipe = FramedPipeline(pipe, enc_len, cfg.d_model)
+    tr = Trainer(model, pipe, OptConfig(peak_lr=3e-4, warmup_steps=5,
+                                        decay_steps=TRAIN_FAMILY_STEPS),
+                 str(TRAIN_DIR / arch), TrainerConfig(
+                     num_steps=TRAIN_FAMILY_STEPS,
+                     ckpt_every=10 * TRAIN_FAMILY_STEPS, log_every=1),
+                 device=model.device)
+    tr.init_state(SEED)
+    aux: list = []
+    step = tr.train_step
+
+    def recording(params, opt_state, batch):
+        out = step(params, opt_state, batch)
+        aux.append(out[2]["aux_loss"])
+        return out
+    tr.train_step = recording
+    log = tr.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = ops.kernel_launches()
+    n_params = count_params(tr.params)
+    cut = "" if cfg.n_layers == base.n_layers else \
+        f" of {base.n_layers}, cut"
+    layers = (f"{cfg.encoder_layers} + {cfg.n_layers}" if enc_len
+              else str(cfg.n_layers))
+    print(f"  {cfg.name}: family {cfg.family}, {layers} layers{cut}, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B "
+          f"parameters; {TRAIN_FAMILY_STEPS} steps in {secs:.1f} s wall (init,"
+          f" the admission filter, the steps); kernel launches {launches}",
+          flush=True)
+    check(any(launches.get(k, 0) for k in ADMISSION_KERNELS),
+          f"{cfg.name}: the admission filter launched none of "
+          f"{ADMISSION_KERNELS}")
+    losses = [r["loss"] for r in log]
+    aux = [float(a) for a in ops.device_get(torch.stack(aux))]
+    check([r["step"] for r in log] == list(range(1, TRAIN_FAMILY_STEPS + 1)),
+          f"{cfg.name}: logged steps {[r['step'] for r in log]}")
+    check(all(np.isfinite(losses)), f"{cfg.name}: a non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"{cfg.name}: loss at step "
+          f"{TRAIN_FAMILY_STEPS} {losses[-1]} is not below step 1's "
+          f"{losses[0]}")
+    if cfg.family == "moe":
+        check(all(np.isfinite(aux)) and min(aux) > 0,
+              f"{cfg.name}: aux losses {aux}")
+    else:
+        check(not any(aux), f"{cfg.name}: aux losses {aux}")
+    step_s = float(np.median([r["sec"] for r in log[1:]]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ, enc_len)
+    frames = f" + {enc_len} stub frames a row" if enc_len else ""
+    print(f"  {cfg.name} losses: step 1 {losses[0]:.4f}, step "
+          f"{TRAIN_FAMILY_STEPS} {losses[-1]:.4f}; all "
+          f"{[round(x, 4) for x in losses]}; aux losses "
+          f"{[round(x, 6) for x in aux]}", flush=True)
+    print(f"  train step ({cfg.name}, batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}{frames}, remat {cfg.remat}): {step_s * 1e3:.2f} "
+          f"ms/step (median of steps 2-{TRAIN_FAMILY_STEPS}), first step "
+          f"{log[0]['sec']:.2f} s, {tokens / step_s:.0f} tokens/s, peak "
+          f"allocated {peak / 1e9:.2f} GB, model FLOPs {flops:.4e} per step, "
+          f"model-FLOP share {flops / (step_s * PEAK_BF16_FLOPS):.4f} of "
+          f"{PEAK_BF16_FLOPS / 1e12:.1f} TFLOP/s dense bf16; "
+          f"{nvidia_smi_line()}", flush=True)
+    prefill_frames = None
+    if enc_len:
+        gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(SEED)
+        prefill_frames = torch.randn((PREFILL_B, enc_len, cfg.d_model),
+                                     generator=gen, device=TRAIN_DEVICE)
+    return tr, launches, prefill_frames
+
+
+def train_moe_serve_part(tr) -> dict:
+    """(e) 8 requests served from the trained MoE parameters with an int8,
+    pruned cache (``LM_PRUNE`` of ``LM_BLOCK``-key blocks): each
+    ``kv_visit_attention[int8]`` call within ``KV_RTOL`` of its plain
+    version, every request admitted and served its new tokens. -> the
+    served run's kernel launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    cfg = tr.model.cfg.replace(kv_cache_int8=True, kv_block_prune=LM_PRUNE,
+                               kv_block_size=LM_BLOCK)
+    model = build_model(cfg)       # on "cuda", as lm_server's BatchServer
+    reqs = lm_requests(cfg, LM_SEED + 2, TRAIN_SERVE_REQUESTS, LM_MB_PROMPT,
+                       TRAIN_SERVE_NEW, admit_all=True)
+    shadow = {"calls": 0, "err": 0.0, "rel": 0.0}
+    ops.reset_kernel_launches()
+    with plain_shadow(shadow):
+        done, steps, seconds = lm_server(model, tr.params, reqs)
+    launches = ops.kernel_launches()
+    check(len(done) == TRAIN_SERVE_REQUESTS, f"{cfg.name}: not all served")
+    calls = steps * cfg.n_layers
+    check(shadow["calls"] == calls
+          and launches.get("kv_visit_attention[int8]", 0) == calls,
+          f"{cfg.name}: {shadow['calls']} kernel calls held against the "
+          f"plain version, {steps} steps, launches {launches}")
+    tokens = sum(r.output.size for r in done)
+    print(f"  {cfg.name} served from the trained parameters (int8 cache, "
+          f"prune {LM_PRUNE} of {LM_BLOCK}-key blocks): {len(done)} requests,"
+          f" {tokens} tokens in {steps} steps, {seconds:.2f} s; each of "
+          f"{shadow['calls']} kv_visit_attention[int8] calls within "
+          f"{shadow['err']:.4g} ({shadow['rel']:.4g} of its max |plain|) of "
+          f"its plain version; kernel launches {launches}", flush=True)
+    return launches
+
+
+def train_families_parts() -> dict:
+    """(e) and (f), each model freed before the next. -> their kernel
+    launches (training and serving)."""
+    total: dict[str, int] = {}
+    for arch, changes in TRAIN_FAMILIES:
+        tr, launches, frames = train_family_part(arch, changes)
+        if tr.model.cfg.family == "moe":
+            served = train_moe_serve_part(tr)
+            launches = {k: launches.get(k, 0) + served.get(k, 0)
+                        for k in {*launches, *served}}
+            check(served.get("kv_visit_attention[int8]", 0) > 0,
+                  "the trained MoE's served run launched no "
+                  "kv_visit_attention[int8]")
+        else:
+            train_prefill_part(tr, frames)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del tr, frames
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
 def train_phase() -> dict:
     """launch.train at full width, serving from its checkpoint, prefill
-    against decode, and the preemption resume at the reduced config. ->
-    the kernel launches of the training run and the served run."""
+    against decode, the preemption resume at the reduced config, then the
+    MoE and encoder-decoder parts. -> the kernel launches of the training
+    runs and the served runs."""
     import shutil
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     try:
@@ -3842,10 +4145,14 @@ def train_phase() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         train_resume_part()
+        gc.collect()
+        torch.cuda.empty_cache()
+        families = train_families_parts()
     finally:
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    return {k: trained.get(k, 0) + served.get(k, 0)
-            for k in sorted({*trained, *served})}
+    parts = (trained, served, families)
+    return {k: sum(p.get(k, 0) for p in parts)
+            for k in sorted({k for p in parts for k in p})}
 
 
 def main() -> int:
@@ -4002,7 +4309,8 @@ def main() -> int:
         launches = train_phase()
         print(f"  kernel launches on the training path: {launches}",
               flush=True)
-        # rows 5, 6 or 8 (the admission filter) and row 12 (the served run)
+        # rows 5, 6 or 8 (the admission filter), row 12 (the served run
+        # from the checkpoint) and row 12b (the trained MoE's served run)
         for r in rows:
             r["launches"] += launches.get(r["name"], 0)
 

@@ -1,15 +1,19 @@
-"""Encoder-decoder backbone (seamless-m4t-large-v2), serving half.
+"""Encoder-decoder backbone (seamless-m4t-large-v2).
 
 Ports ``EncDecLM`` of ``repro/models/encdec.py``: ``init``, ``encode``,
-``init_cache``, ``fill_cross_cache`` and ``decode_step``. The audio frontend
-is a stub, as in the reference: the caller supplies precomputed frame
-embeddings (B, S_enc, D) for the bidirectional encoder. The decoder is
-causal self-attention over a full cache, cross-attention over per-layer
-K/V computed once from the encoder output, and a SwiGLU MLP. The layers are
-Python lists of per-layer parameter dicts; the cache keeps the reference's
-stacked layout — ``k``/``v`` (L, B, slots, KV, hd), ``xk``/``xv`` (L, B,
-S_enc, KV, hd) — and ``decode_step`` updates it in place. ``forward``,
-``loss_fn`` and ``prefill`` come with the training slice.
+``forward``, ``loss_fn``, ``prefill``, ``init_cache``, ``fill_cross_cache``
+and ``decode_step``. The audio frontend is a stub, as in the reference: the
+caller supplies precomputed frame embeddings (B, S_enc, D) for the
+bidirectional encoder (``batch["enc_embeds"]`` in training). The decoder is
+causal self-attention, cross-attention over per-layer K/V of the encoder
+output (computed once per layer; in decode, once into the cache), and a
+SwiGLU MLP. The layers are Python lists of per-layer parameter dicts; with
+``cfg.remat != "none"`` and grad enabled each encoder and decoder layer
+runs under ``torch.utils.checkpoint`` (the reference's ``_maybe_remat``),
+so serving, which runs without grad, is unchanged. The cache keeps the
+reference's stacked layout — ``k``/``v`` (L, B, slots, KV, hd),
+``xk``/``xv`` (L, B, S_enc, KV, hd) — and ``decode_step`` updates it in
+place.
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ from typing import Any
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import dense_layer_init, vocab_padded
+from repro_torch.models.transformer import (dense_layer_init, remat_enabled,
+                                            run_layers, vocab_padded)
 
 F32 = torch.float32
 
@@ -37,6 +42,17 @@ def dec_layer_init(cfg, generator: torch.Generator, device) -> dict:
         "ln2": L.rmsnorm_init(cfg.d_model, device),
         "mlp": L.mlp_init(cfg, generator, device),
     }
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    """Positions 0..S-1 of a (B, S, D) sequence, (B, S) int32."""
+    b, s = x.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
+        b, s)
+
+
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=F32, device=x.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,15 +88,52 @@ class EncDecLM:
         """(B, S_enc, D) frame embeddings -> (B, S_enc, D) encoder output."""
         cfg = self.cfg
         x = enc_embeds.to(self.dtype)
-        b, s = x.shape[:2]
-        pos = torch.arange(s, dtype=torch.int32,
-                           device=x.device)[None].expand(b, s)
-        for lp in params["enc_layers"]:
+        pos = _positions(x)
+
+        def body(lp, x):
             x = x + L.mha_train(lp["attn"],
                                 L.rmsnorm(lp["ln1"], x, cfg.norm_eps), pos,
                                 cfg, causal=False)
             x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+            return x, _zero(x)
+
+        x, _ = run_layers(params["enc_layers"], x, body, remat_enabled(cfg))
         return L.rmsnorm(params["enc_ln"], x, cfg.norm_eps)
+
+    def forward(self, params, batch):
+        """``enc_embeds`` (B, S_enc, D) and ``tokens`` (B, S) -> ((B, S,
+        vocab_pad) float32 logits, aux = 0)."""
+        cfg = self.cfg
+        enc_out = self.encode(params, batch["enc_embeds"])
+        y = L.embed(params["embed"], batch["tokens"])
+        pos = _positions(y)
+
+        def body(lp, y):
+            y = y + L.mha_train(lp["attn"],
+                                L.rmsnorm(lp["ln1"], y, cfg.norm_eps), pos,
+                                cfg, causal=True)
+            xk, xv = L.cross_kv(lp["xattn"], enc_out)
+            y = y + L.cross_attend(lp["xattn"],
+                                   L.rmsnorm(lp["lnx"], y, cfg.norm_eps),
+                                   xk, xv, cfg)
+            y = y + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], y, cfg.norm_eps))
+            return y, _zero(y)
+
+        y, aux = run_layers(params["dec_layers"], y, body, remat_enabled(cfg))
+        y = L.rmsnorm(params["final_ln"], y, cfg.norm_eps)
+        return L.unembed(params["embed"], y, cfg.tie_embeddings), aux
+
+    def loss_fn(self, params, batch):
+        """-> (total loss, {"loss", "aux_loss"})."""
+        logits, aux = self.forward(params, batch)
+        loss = L.xent_loss(logits, batch["labels"], self.cfg.vocab_size)
+        return loss + aux, {"loss": loss, "aux_loss": aux}
+
+    def prefill(self, params, batch):
+        """The last position of ``forward`` -> (logits (B, 1, vocab_pad)
+        float32, aux)."""
+        logits, aux = self.forward(params, batch)
+        return logits[:, -1:, :], aux
 
     def init_cache(self, batch: int, slots: int, dtype=None,
                    enc_len: int = 0) -> dict:

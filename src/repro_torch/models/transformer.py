@@ -1,13 +1,15 @@
 """Decoder-only LM for the dense / moe / ssm / hybrid / vlm / audio
 (decoder-only) families: decode serving for every family, the training
-forward for the families whose layers are all ``dense_layer_train``.
+forward for the families whose layers are ``dense_layer_train`` or
+``moe_layer_train``.
 
 Ports ``DecoderLM`` of ``repro/models/transformer.py``: ``init``,
 ``init_cache``, ``decode_step`` and ``vocab_padded``, with the reference's
 per-layer blocks, and ``forward``/``loss_fn``/``prefill`` for ``dense``,
-``vlm`` and ``audio``. The reference scans a stacked layer tree; here the
-layers are a Python list of per-layer parameter dicts and the loop is a
-Python loop (PyTorch runs eagerly). Hybrid (Griffin) stacks are a list of
+``vlm``, ``audio`` and ``moe`` (the MoE layers' load-balancing losses
+summed over the stack into ``aux``). The reference scans a stacked layer
+tree; here the layers are a Python list of per-layer parameter dicts and
+the loop is a Python loop (PyTorch runs eagerly). Hybrid (Griffin) stacks are a list of
 (rec, rec, attn) ``groups`` plus a ``tail`` of recurrent layers,
 RecurrentGemma's 26 = 8 * 3 + 2. The cache keeps the reference's stacked
 layouts — ``k``/``v`` (L, B, S, KV, hd) (int8 with ``k_scale``/``v_scale``
@@ -24,7 +26,7 @@ does. ``cfg.remat != "none"`` recomputes each layer in the backward pass
 changes). ``scan_layers``, ``seq_shard_resid`` and the reference's
 ``shardctx`` constraints place a layer loop and its activations on a TPU
 mesh; on one device they change nothing, so they have no counterpart here.
-The training forward of the moe, ssm and hybrid families raises
+The training forward of the ssm and hybrid families raises
 ``NotImplementedError``: it is the next training slice.
 """
 from __future__ import annotations
@@ -93,14 +95,9 @@ def _attn_window(cfg) -> Optional[int]:
     return cfg.sliding_window
 
 
-# families whose every layer is ``dense_layer_train``, and the attention
-# window each gives it (the reference's ``_run_stack`` body table)
-TRAIN_WINDOW = {"dense": _attn_window, "vlm": lambda cfg: None,
-                "audio": lambda cfg: None}
-NEXT_TRAIN_SLICE = ("ROADMAP queue 1 item 4's next training slice (MoE with "
-                    "its aux loss, ssd_chunked / ssm_train, rglru_train and "
-                    "the hybrid groups, EncDecLM.forward / loss_fn / "
-                    "prefill)")
+NEXT_TRAIN_SLICE = ("ROADMAP queue 1 item 4's next training slice "
+                    "(ssd_chunked / ssm_train, rglru_train and the hybrid "
+                    "groups)")
 
 
 def dense_layer_train(lp, x, positions, cfg, window=None):
@@ -109,6 +106,48 @@ def dense_layer_train(lp, x, positions, cfg, window=None):
                         positions, cfg, window=window)
     x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
     return x, torch.zeros((), dtype=F32, device=x.device)
+
+
+def moe_layer_train(lp, x, positions, cfg):
+    """x + attention + the MoE layer -> (x, the layer's load-balancing
+    loss)."""
+    x = x + L.mha_train(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                        positions, cfg, window=_attn_window(cfg))
+    y, aux = M.moe_apply(lp["moe"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps),
+                         cfg)
+    return x + y, aux
+
+
+# the training body of each family whose layers are one block (the
+# reference's ``_run_stack`` body table): (layer params, x, positions, cfg)
+# -> (x, aux)
+TRAIN_BODY = {
+    "dense": lambda lp, x, pos, cfg: dense_layer_train(
+        lp, x, pos, cfg, window=_attn_window(cfg)),
+    "vlm": dense_layer_train,
+    "audio": dense_layer_train,
+    "moe": moe_layer_train,
+}
+
+
+def run_layers(layers, x, body, remat: bool):
+    """``body(lp, x) -> (x, aux)`` over a list of layers, the aux losses
+    summed in layer order from a float32 zero, as the reference's
+    ``_scan_stack``; with ``remat`` each layer runs under
+    ``torch.utils.checkpoint`` (recomputed in the backward pass)."""
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    for lp in layers:
+        x, aux_l = (checkpoint(body, lp, x, use_reentrant=False) if remat
+                    else body(lp, x))
+        aux = aux + aux_l
+    return x, aux
+
+
+def remat_enabled(cfg) -> bool:
+    """Whether a layer loop checkpoints its layers: ``cfg.remat`` asks for
+    it and grad is enabled (a forward under ``no_grad``, as serving runs
+    it, has no backward pass to recompute for)."""
+    return cfg.remat != "none" and torch.is_grad_enabled()
 
 
 def _put(cache: dict, i: int, new: dict) -> None:
@@ -184,23 +223,17 @@ class DecoderLM:
 
     def _run_stack(self, params, x, positions):
         cfg = self.cfg
-        if cfg.family not in TRAIN_WINDOW:
+        if cfg.family not in TRAIN_BODY:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family's training forward is "
                 f"{NEXT_TRAIN_SLICE}")
-        window = TRAIN_WINDOW[cfg.family](cfg)
+        layer = TRAIN_BODY[cfg.family]
         # A Python loop over the layer list: the reference's scan_layers,
         # seq_shard_resid and shardctx constraints shape a TPU program and
         # its mesh placement, and have no effect on one device.
-        remat = cfg.remat != "none" and torch.is_grad_enabled()
-        aux = torch.zeros((), dtype=F32, device=x.device)
-        for lp in params["layers"]:
-            def body(x, lp=lp):
-                return dense_layer_train(lp, x, positions, cfg, window=window)
-            x, aux_l = (checkpoint(body, x, use_reentrant=False) if remat
-                        else body(x))
-            aux = aux + aux_l
-        return x, aux
+        return run_layers(params["layers"], x,
+                          lambda lp, x: layer(lp, x, positions, cfg),
+                          remat_enabled(cfg))
 
     def loss_fn(self, params, batch):
         """-> (total loss, {"loss", "aux_loss"}); with a modality prefix the

@@ -44,7 +44,8 @@ raises), and every certified path's ``launch_batch`` and ``finalize``,
 frozen and under a delta, synchronize only in ``ops.device_get``, at the
 counts ``BUDGET_torch.json`` certifies; so do ``ColumnarScan.mask_batch``,
 ``mask_batch_partial`` and ``count_batch`` (one counted op, one counted
-sync each). The training path: one reduced float32 train step on the card
+sync each). The training path: one reduced float32 train step of each
+trainable architecture (dense, vlm, MoE, the encoder-decoder) on the card
 against the same step on the CPU, and the data pipeline's admission filter
 on the card against an engine on the plain backend.
 """
@@ -1336,37 +1337,91 @@ def test_columnar_batch_calls_sync_only_where_counted(dev, call):
 
 # -- the training path on the card -------------------------------------------
 
-def test_train_step_on_the_card_matches_the_cpu(dev):
-    """One reduced smollm-360m float32 train step (the same weights, batch 0
-    of the pipeline) on the card against the CPU: loss and gradient norm
-    within 1e-5 relative (float32 sums in another order), every new
-    parameter and master weight within 1e-5 (the CPU test's spread against
-    the reference was 1.06e-6), the step count and learning rate equal."""
-    from repro_torch.configs import get_config
+# every trainable architecture's reduced config (d_model 128, 2-3 layers);
+# h2o-danube's query chunks of 40 split the 80 positions in two
+TRAIN_ARCHS = ("smollm_360m", "qwen3_8b", "h2o_danube_1_8b", "phi3_medium_14b",
+               "llava_next_34b", "deepseek_moe_16b", "arctic_480b",
+               "seamless_m4t_large_v2")
+TRAIN_CHANGES = {"h2o_danube_1_8b": {"q_chunk": 40}}
+TRAIN_SEQ = 80
+
+
+def _train_batch(cfg) -> dict:
+    """Batch 0 of the MDRQ-filtered pipeline (8 rows of ``TRAIN_SEQ``
+    positions in all), with numpy stub embeddings beside it: a vlm's
+    modality prefix, an encoder-decoder's ``max(8, S // 4)`` frames."""
     from repro_torch.data import DataConfig, FilteredTokenPipeline
-    from repro_torch.models.params import leaves
+    text = TRAIN_SEQ - cfg.n_prefix_embeds
+    batch = FilteredTokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=text, global_batch=8, n_pool=1024,
+        seed=1), device="cpu").batch(0)
+    rng = np.random.default_rng(2)
+    if cfg.n_prefix_embeds:
+        batch["prefix_embeds"] = rng.normal(
+            size=(8, cfg.n_prefix_embeds, cfg.d_model)).astype(np.float32)
+    if cfg.encoder_layers:
+        batch["enc_embeds"] = rng.normal(
+            size=(8, max(8, text // 4), cfg.d_model)).astype(np.float32)
+    return batch
+
+
+@contextlib.contextmanager
+def _recorded_routes(calls: list):
+    """Each ``moe.route`` call's expert ids, appended to ``calls``."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recording(p, x, cfg):
+        probs, gates, idx = route(p, x, cfg)
+        calls.append(idx.cpu())
+        return probs, gates, idx
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card_matches_the_cpu(dev, arch):
+    """One reduced float32 train step of each trainable architecture (the
+    same weights, batch 0 of the pipeline and the same stub embeddings) on
+    the card against the CPU: loss and gradient norm within 1e-5 relative
+    (float32 sums in another order), every new parameter and master weight
+    within 1e-5 (the CPU tests' spread against the reference was
+    1.06e-6), the step count and learning rate equal. A MoE step routes
+    every token to the same experts on both (checked first: a swapped
+    near-tie would move a whole expert's share), and its aux loss agrees
+    within 1e-5 relative."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import leaves, unflatten
     from repro_torch.models.registry import build_model
     from repro_torch.train import OptConfig, init_opt_state, make_train_step
-    cfg = get_config("smollm_360m").reduced().replace(param_dtype="float32")
-    batch = FilteredTokenPipeline(DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=32, global_batch=8, n_pool=1024,
-        seed=1), device="cpu").batch(0)
+    cfg = get_config(arch).reduced().replace(param_dtype="float32",
+                                             **TRAIN_CHANGES.get(arch, {}))
+    batch = _train_batch(cfg)
     params = build_model(cfg, device="cpu").init(
         torch.Generator().manual_seed(0))
 
     def run(device):
         model = build_model(cfg, device=device)
-        p = [t.to(model.device) for t in leaves(params)]
-        from repro_torch.models.params import unflatten
-        p = unflatten(params, p)
+        p = unflatten(params, [t.to(model.device) for t in leaves(params)])
         step = make_train_step(model, OptConfig(warmup_steps=10))
-        return step(p, init_opt_state(p),
-                    {k: torch.as_tensor(v, device=model.device)
-                     for k, v in batch.items()})
+        routes: list = []
+        with _recorded_routes(routes):
+            out = step(p, init_opt_state(p),
+                       {k: torch.as_tensor(v, device=model.device)
+                        for k, v in batch.items()})
+        return out, routes
 
-    got, want = run(dev), run("cpu")
-    for k in ("loss", "total_loss", "grad_norm"):
+    (got, got_routes), (want, want_routes) = run(dev), run("cpu")
+    assert len(got_routes) == len(want_routes) == (
+        cfg.n_layers if cfg.family == "moe" else 0)
+    for a, b in zip(got_routes, want_routes):
+        assert torch.equal(a, b)
+    for k in ("loss", "total_loss", "grad_norm", "aux_loss"):
         assert float(got[2][k]) == pytest.approx(float(want[2][k]), rel=1e-5)
+    assert (float(got[2]["aux_loss"]) > 0) == (cfg.family == "moe")
     assert got[2]["lr"] == want[2]["lr"] and got[1]["step"] == 1
     for a, b in zip([*leaves(got[0]), *leaves(got[1]["master"])],
                     [*leaves(want[0]), *leaves(want[1]["master"])]):

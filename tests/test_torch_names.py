@@ -22,9 +22,8 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 REF, PORT = SRC / "repro", SRC / "repro_torch"
 
 ITEM3 = "ROADMAP queue 1 item 3: the benchmark PR"
-ITEM4 = "ROADMAP queue 1 item 4: the rest of the LM framework"
-TRAIN = ("ROADMAP queue 1 item 4: the next training slice (MoE, Mamba-2, "
-         "RG-LRU and the hybrid, the encoder-decoder)")
+TRAIN = ("ROADMAP queue 1 item 4: the next training slice (Mamba-2, "
+         "RG-LRU and the hybrid)")
 ITEM5 = "ROADMAP queue 1 item 5: the mesh and compile tools"
 
 MISSING_MODULES = {
@@ -36,6 +35,11 @@ MISSING_MODULES = {
 
 _ZERO1 = ("JAX construct (ZeRO-1 PartitionSpecs of the optimizer state over "
           "a TPU mesh axis); one device has nothing to shard: " + ITEM5)
+
+_BARE = ("JAX construct (a value tagged with its logical sharding axes); "
+         "port: bare tensors")
+_SHARDING = ("JAX construct (logical axes -> PartitionSpecs / NamedShardings "
+             "over a TPU mesh); one device has nothing to shard: " + ITEM5)
 
 _AOT = ("JAX construct (AOT compile cache / retrace probe); port: the warm "
         "keys of ops.counted and PipelinedMDRQServer.warmup")
@@ -57,18 +61,28 @@ MISSING_NAMES = {
         "aot_cache_size": _AOT, "aot_counters": _AOT,
         "clear_aot_cache": _AOT, "set_backend": _BACKEND,
         "use_xla": _BACKEND, "default_interpret": _BACKEND},
-    "models/encdec.py": {n: TRAIN for n in (
-        "EncDecLM.forward", "EncDecLM.loss_fn", "EncDecLM.prefill")},
-    "models/params.py": {n: ITEM4 for n in (
-        "DEFAULT_RULES", "Param", "abstract_like", "is_param", "pspec_tree",
-        "sharding_tree", "split_tree", "stack_layer_params")},
+    "models/params.py": {
+        "Param": _BARE,
+        "is_param": _BARE,
+        "split_tree": _BARE + "; count_params and leaves take the tree "
+                              "as it is",
+        "abstract_like": "JAX construct (ShapeDtypeStructs for tracing "
+                         "without arrays); port: none needed, nothing is "
+                         "traced (a meta-device build is " + ITEM5 + ")",
+        "stack_layer_params": "JAX construct (a stacked leading layer axis "
+                              "for lax.scan); port: per-layer lists "
+                              "(models.convert.from_jax_params unstacks "
+                              "the reference's)",
+        "DEFAULT_RULES": _SHARDING,
+        "pspec_tree": _SHARDING,
+        "sharding_tree": _SHARDING},
     "models/registry.py": {n: ITEM5 for n in (
         "CellSpec", "TP", "attn_policy", "batch_axes", "cache_pspecs_for",
         "make_cell", "sharding_rules")},
     "models/rglru.py": {"rglru_train": TRAIN},
     "models/ssm.py": {"ssd_chunked": TRAIN, "ssm_train": TRAIN},
     "models/transformer.py": {n: TRAIN for n in (
-        "moe_layer_train", "rec_layer_train", "ssm_layer_train")},
+        "rec_layer_train", "ssm_layer_train")},
     "train/optimizer.py": {"zero1_pspec": _ZERO1, "opt_state_pspecs": _ZERO1},
     "train/train_step.py": {
         "compressed_psum": "JAX construct (an int8 all-reduce over a "

@@ -247,8 +247,7 @@ def test_loss_gradients_match_jax_grad(arch, dtype):
         assert err <= BF16_GRAD_REL, err
 
 
-@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "arctic_480b",
-                                  "mamba2_780m", "recurrentgemma_2b"])
+@pytest.mark.parametrize("arch", ["mamba2_780m", "recurrentgemma_2b"])
 def test_next_slice_families_raise(arch):
     cfg = get_config(arch).reduced()
     model = build_model(cfg, device="cpu")

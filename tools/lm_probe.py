@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The LM decode-serving phases alone, and the decode step time of a checkout.
+"""The LM phases alone, and the decode step time of a checkout.
 
     python3 tools/lm_probe.py phases
+    python3 tools/lm_probe.py train
     python3 tools/lm_probe.py step --root DIR [--layers N]
 
 ``phases`` builds the kernels and runs ``chip_smoke.py``'s ``lm`` and
@@ -9,6 +10,9 @@
 this tool), then prints their kernel rows as JSON. It is for iterating on
 those phases without the MDRQ phases before them; it prints no contract
 line, so a run of it is never mistaken for a run of ``chip_smoke.py``.
+``train`` does the same for the train phase's MoE and encoder-decoder parts
+(``train_families_parts``) and the LM examples (``lm_examples_part``), and
+prints their kernel launches.
 
 ``step`` imports ``repro_torch`` from ``DIR/src`` (a checkout of this
 repository, for example the parent commit unpacked with ``git archive``),
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -62,6 +67,33 @@ def phases() -> int:
     with cs.phase("lm_families"):
         cs.lm_families_phase(rows)
     print(json.dumps({"kernels": rows}))
+    return 0
+
+
+def train() -> int:
+    sys.path.insert(0, str(HERE))
+    import shutil
+    import chip_smoke as cs
+    import torch
+    from repro_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        print("lm_probe: needs a CUDA device", file=sys.stderr)
+        return 2
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    print(cs.nvidia_smi_line(), flush=True)
+    with cs.phase("build"):
+        _build.build()
+    launches = {}
+    with cs.phase("train:families"):
+        shutil.rmtree(cs.TRAIN_DIR, ignore_errors=True)
+        try:
+            launches["train"] = cs.train_families_parts()
+        finally:
+            shutil.rmtree(cs.TRAIN_DIR, ignore_errors=True)
+    with cs.phase("examples:lm"):
+        launches["examples"] = cs.lm_examples_part()
+    print(json.dumps({"launches": launches}))
     return 0
 
 
@@ -133,12 +165,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="mode", required=True)
     sub.add_parser("phases")
+    sub.add_parser("train")
     st = sub.add_parser("step")
     st.add_argument("--root", type=Path, required=True)
     st.add_argument("--layers", type=int, default=12)
     args = ap.parse_args(argv)
     if args.mode == "phases":
         return phases()
+    if args.mode == "train":
+        return train()
     return step(args.root.resolve(), args.layers)
 
 
