@@ -1,8 +1,6 @@
-"""RG-LRU recurrent blocks (Griffin / RecurrentGemma — arXiv:2402.19427),
-decode half.
+"""RG-LRU recurrent blocks (Griffin / RecurrentGemma — arXiv:2402.19427).
 
-Ports ``rglru_init``, ``_gates``, ``rglru_init_state`` and ``rglru_decode``
-of ``repro/models/rglru.py``. Recurrent sublayer: in-proj -> causal
+Ports ``repro/models/rglru.py``. Recurrent sublayer: in-proj -> causal
 depthwise conv(4) -> RG-LRU -> gated merge -> out-proj:
 
     r_t = sigmoid(w_r . x_t + b_r)          (recurrence gate, per channel)
@@ -11,9 +9,11 @@ depthwise conv(4) -> RG-LRU -> gated merge -> out-proj:
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
 The gate is ``jax.nn.gelu``'s default, the tanh approximation
-(``layers.gelu_tanh``, op for op; ``F.gelu`` defaults to erf). The
-sequence form (``rglru_train``, an associative scan) comes with the
-training slice.
+(``layers.gelu_tanh``, op for op; ``F.gelu`` defaults to erf). Training
+and prefill (``rglru_train``) run the linear recurrence h_t = a_t h_{t-1} +
+b_t over the sequence in float32 as ``jax.lax.associative_scan``'s odd/even
+recursion (``_associative_scan``, O(log L) depth, no loop over L), so the
+sums fall in the reference's order; decoding is the single-step update.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import gelu_tanh
 from repro_torch.models.params import dense_init, ones_init, zeros_init
-from repro_torch.models.ssm import _dconv_step
+from repro_torch.models.ssm import _causal_dconv, _dconv_step
 
 F32 = torch.float32
 C_MAG = 8.0
@@ -58,6 +58,59 @@ def _gates(p, x):
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     return a, beta * (i * xf)
+
+
+def _slice(t, dim: int, start, stop=None, step: int = 1):
+    return t[(slice(None),) * dim + (slice(start, stop, step),)]
+
+
+def _interleave(even, odd, dim: int):
+    """even[0], odd[0], even[1], ... along ``dim``; ``even`` as long as
+    ``odd`` or one longer."""
+    n = odd.shape[dim]
+    pairs = torch.stack([_slice(even, dim, 0, n), odd], dim=dim + 1)
+    out = pairs.flatten(dim, dim + 1)
+    if even.shape[dim] > n:
+        out = torch.cat([out, _slice(even, dim, n)], dim=dim)
+    return out
+
+
+def _associative_scan(fn, elems: tuple, dim: int) -> tuple:
+    """Inclusive scan of the tuple of tensors ``elems`` along ``dim`` under
+    the associative ``fn(earlier, later)``: ``jax.lax.associative_scan``'s
+    recursion, step for step — combine adjacent pairs, scan those, then
+    combine the scanned pairs with the even elements — so every element is
+    combined in the reference's order."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+    reduced = fn(tuple(_slice(e, dim, 0, -1, 2) for e in elems),
+                 tuple(_slice(e, dim, 1, None, 2) for e in elems))
+    odd = _associative_scan(fn, reduced, dim)
+    if n % 2 == 0:
+        even = fn(tuple(_slice(e, dim, 0, -1) for e in odd),
+                  tuple(_slice(e, dim, 2, None, 2) for e in elems))
+    else:
+        even = fn(odd, tuple(_slice(e, dim, 2, None, 2) for e in elems))
+    even = tuple(torch.cat([_slice(e, dim, 0, 1), r], dim=dim)
+                 for e, r in zip(elems, even))
+    return tuple(_interleave(e, o, dim) for e, o in zip(even, odd))
+
+
+def _combine(c1, c2):
+    """Two steps of h -> a h + b composed, the earlier first."""
+    a1, b1 = c1
+    a2, b2 = c2
+    return a1 * a2, a2 * b1 + b2
+
+
+def rglru_train(p, x, cfg):
+    """Full-sequence recurrent sublayer. x: (B, L, D) -> (B, L, D)."""
+    u = _causal_dconv(x @ p["w_in"], p["conv"])
+    a, bx = _gates(p, u)
+    _, h = _associative_scan(_combine, (a, bx), dim=1)
+    gate = gelu_tanh(x @ p["w_gate"])
+    return (h.to(x.dtype) * gate) @ p["w_out"]
 
 
 def rglru_init_state(cfg, batch: int, dtype, device) -> dict:

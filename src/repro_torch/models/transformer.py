@@ -1,33 +1,32 @@
 """Decoder-only LM for the dense / moe / ssm / hybrid / vlm / audio
-(decoder-only) families: decode serving for every family, the training
-forward for the families whose layers are ``dense_layer_train`` or
-``moe_layer_train``.
+(decoder-only) families: decode serving and the training forward for every
+family.
 
 Ports ``DecoderLM`` of ``repro/models/transformer.py``: ``init``,
 ``init_cache``, ``decode_step`` and ``vocab_padded``, with the reference's
-per-layer blocks, and ``forward``/``loss_fn``/``prefill`` for ``dense``,
-``vlm``, ``audio`` and ``moe`` (the MoE layers' load-balancing losses
-summed over the stack into ``aux``). The reference scans a stacked layer
-tree; here the layers are a Python list of per-layer parameter dicts and
-the loop is a Python loop (PyTorch runs eagerly). Hybrid (Griffin) stacks are a list of
-(rec, rec, attn) ``groups`` plus a ``tail`` of recurrent layers,
-RecurrentGemma's 26 = 8 * 3 + 2. The cache keeps the reference's stacked
-layouts — ``k``/``v`` (L, B, S, KV, hd) (int8 with ``k_scale``/``v_scale``
-(L, B, S, KV, 1) float32 under ``kv_cache_int8``; S = min(slots, window) for
-a ring), the zone maps ``kmin``/``kmax`` (L, B, nb, KV, hd) float32 under
-``kv_block_prune``; the SSM states under ``layers``; the hybrid's per-group
-recurrent states and local-attention ring, and its tail's states — and
-``decode_step`` updates it in place.
+per-layer blocks, and ``forward``/``loss_fn``/``prefill`` (the MoE layers'
+load-balancing losses summed over the stack into ``aux``). The reference
+scans a stacked layer tree; here the layers are a Python list of per-layer
+parameter dicts and the loop is a Python loop (PyTorch runs eagerly).
+Hybrid (Griffin) stacks are a list of (rec, rec, attn) ``groups`` plus a
+``tail`` of recurrent layers, RecurrentGemma's 26 = 8 * 3 + 2; the
+training forward runs each group as one body (so remat checkpoints a whole
+group, as the reference's), then the tail. The cache keeps the reference's
+stacked layouts — ``k``/``v`` (L, B, S, KV, hd) (int8 with
+``k_scale``/``v_scale`` (L, B, S, KV, 1) float32 under ``kv_cache_int8``; S
+= min(slots, window) for a ring), the zone maps ``kmin``/``kmax`` (L, B,
+nb, KV, hd) float32 under ``kv_block_prune``; the SSM states under
+``layers``; the hybrid's per-group recurrent states and local-attention
+ring, and its tail's states — and ``decode_step`` updates it in place.
 
 A vlm's modality prefix (``batch["prefix_embeds"]``) enters only the
 training/prefill forward; decode embeds tokens alone, as the reference's
-does. ``cfg.remat != "none"`` recomputes each layer in the backward pass
-(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``; no value
-changes). ``scan_layers``, ``seq_shard_resid`` and the reference's
-``shardctx`` constraints place a layer loop and its activations on a TPU
-mesh; on one device they change nothing, so they have no counterpart here.
-The training forward of the ssm and hybrid families raises
-``NotImplementedError``: it is the next training slice.
+does. ``cfg.remat != "none"`` recomputes each layer (each hybrid group) in
+the backward pass (``torch.utils.checkpoint``, the counterpart of
+``jax.checkpoint``; no value changes). ``scan_layers``, ``seq_shard_resid``
+and the reference's ``shardctx`` constraints place a layer loop and its
+activations on a TPU mesh; on one device they change nothing, so they have
+no counterpart here.
 """
 from __future__ import annotations
 
@@ -95,11 +94,6 @@ def _attn_window(cfg) -> Optional[int]:
     return cfg.sliding_window
 
 
-NEXT_TRAIN_SLICE = ("ROADMAP queue 1 item 4's next training slice "
-                    "(ssd_chunked / ssm_train, rglru_train and the hybrid "
-                    "groups)")
-
-
 def dense_layer_train(lp, x, positions, cfg, window=None):
     """x + attention + MLP over the whole sequence -> (x, zero aux loss)."""
     x = x + L.mha_train(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps),
@@ -118,6 +112,30 @@ def moe_layer_train(lp, x, positions, cfg):
     return x + y, aux
 
 
+def ssm_layer_train(lp, x, positions, cfg):
+    """x + the Mamba-2 mixer -> (x, zero aux loss)."""
+    x = x + S.ssm_train(lp["ssm"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg)
+    return x, torch.zeros((), dtype=F32, device=x.device)
+
+
+def rec_layer_train(lp, x, positions, cfg):
+    """x + the RG-LRU sublayer + MLP -> (x, zero aux loss)."""
+    x = x + R.rglru_train(lp["rec"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                          cfg)
+    x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+    return x, torch.zeros((), dtype=F32, device=x.device)
+
+
+def _group_train(lp, x, positions, cfg):
+    """One hybrid group: rec1, rec2, then local attention over
+    ``cfg.local_window`` -> (x, the three aux losses summed)."""
+    x, a1 = rec_layer_train(lp["rec1"], x, positions, cfg)
+    x, a2 = rec_layer_train(lp["rec2"], x, positions, cfg)
+    x, a3 = dense_layer_train(lp["attn"], x, positions, cfg,
+                              window=cfg.local_window)
+    return x, a1 + a2 + a3
+
+
 # the training body of each family whose layers are one block (the
 # reference's ``_run_stack`` body table): (layer params, x, positions, cfg)
 # -> (x, aux)
@@ -127,6 +145,7 @@ TRAIN_BODY = {
     "vlm": dense_layer_train,
     "audio": dense_layer_train,
     "moe": moe_layer_train,
+    "ssm": ssm_layer_train,
 }
 
 
@@ -223,17 +242,27 @@ class DecoderLM:
 
     def _run_stack(self, params, x, positions):
         cfg = self.cfg
-        if cfg.family not in TRAIN_BODY:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family's training forward is "
-                f"{NEXT_TRAIN_SLICE}")
-        layer = TRAIN_BODY[cfg.family]
-        # A Python loop over the layer list: the reference's scan_layers,
+        remat = remat_enabled(cfg)
+        # Python loops over the layer lists: the reference's scan_layers,
         # seq_shard_resid and shardctx constraints shape a TPU program and
         # its mesh placement, and have no effect on one device.
+        if cfg.family == "hybrid":
+            x, aux = run_layers(
+                params["groups"], x,
+                lambda lp, x: _group_train(lp, x, positions, cfg), remat)
+            if "tail" in params:
+                x, aux_tail = run_layers(
+                    params["tail"], x,
+                    lambda lp, x: rec_layer_train(lp, x, positions, cfg),
+                    remat)
+                aux = aux + aux_tail
+            return x, aux
+        if cfg.family not in TRAIN_BODY:
+            raise NotImplementedError(
+                f"{cfg.name}: no training body for the {cfg.family} family")
+        layer = TRAIN_BODY[cfg.family]
         return run_layers(params["layers"], x,
-                          lambda lp, x: layer(lp, x, positions, cfg),
-                          remat_enabled(cfg))
+                          lambda lp, x: layer(lp, x, positions, cfg), remat)
 
     def loss_fn(self, params, batch):
         """-> (total loss, {"loss", "aux_loss"}); with a modality prefix the

@@ -50,6 +50,7 @@ against the same step on the CPU, and the data pipeline's admission filter
 on the card against an engine on the plain backend.
 """
 import contextlib
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -1337,13 +1338,29 @@ def test_columnar_batch_calls_sync_only_where_counted(dev, call):
 
 # -- the training path on the card -------------------------------------------
 
-# every trainable architecture's reduced config (d_model 128, 2-3 layers);
-# h2o-danube's query chunks of 40 split the 80 positions in two
+# every trainable architecture's reduced config (d_model 128, 2-5 layers);
+# h2o-danube's query chunks of 40 split the 80 positions in two;
+# recurrentgemma-2b at 5 layers is one (rec, rec, attn) group and a tail of
+# two, its local window of 32 exceeded; mamba2-780m's SSD runs in chunks of
+# 40 (two over the 80 positions; ``_train_cfg``)
 TRAIN_ARCHS = ("smollm_360m", "qwen3_8b", "h2o_danube_1_8b", "phi3_medium_14b",
                "llava_next_34b", "deepseek_moe_16b", "arctic_480b",
-               "seamless_m4t_large_v2")
-TRAIN_CHANGES = {"h2o_danube_1_8b": {"q_chunk": 40}}
+               "seamless_m4t_large_v2", "mamba2_780m", "recurrentgemma_2b")
+TRAIN_CHANGES = {"h2o_danube_1_8b": {"q_chunk": 40},
+                 "recurrentgemma_2b": {"n_layers": 5}}
 TRAIN_SEQ = 80
+SSD_CHUNK = 40
+
+
+def _train_cfg(arch: str):
+    """``arch``'s reduced float32 config with its ``TRAIN_CHANGES``; an SSM's
+    chunk set to ``SSD_CHUNK``, which divides ``TRAIN_SEQ``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced().replace(param_dtype="float32",
+                                             **TRAIN_CHANGES.get(arch, {}))
+    if cfg.ssm is not None:
+        cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, chunk=SSD_CHUNK))
+    return cfg
 
 
 def _train_batch(cfg) -> dict:
@@ -1393,12 +1410,10 @@ def test_train_step_on_the_card_matches_the_cpu(dev, arch):
     every token to the same experts on both (checked first: a swapped
     near-tie would move a whole expert's share), and its aux loss agrees
     within 1e-5 relative."""
-    from repro_torch.configs import get_config
     from repro_torch.models.params import leaves, unflatten
     from repro_torch.models.registry import build_model
     from repro_torch.train import OptConfig, init_opt_state, make_train_step
-    cfg = get_config(arch).reduced().replace(param_dtype="float32",
-                                             **TRAIN_CHANGES.get(arch, {}))
+    cfg = _train_cfg(arch)
     batch = _train_batch(cfg)
     params = build_model(cfg, device="cpu").init(
         torch.Generator().manual_seed(0))

@@ -22,8 +22,6 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 REF, PORT = SRC / "repro", SRC / "repro_torch"
 
 ITEM3 = "ROADMAP queue 1 item 3: the benchmark PR"
-TRAIN = ("ROADMAP queue 1 item 4: the next training slice (Mamba-2, "
-         "RG-LRU and the hybrid)")
 ITEM5 = "ROADMAP queue 1 item 5: the mesh and compile tools"
 
 MISSING_MODULES = {
@@ -79,10 +77,6 @@ MISSING_NAMES = {
     "models/registry.py": {n: ITEM5 for n in (
         "CellSpec", "TP", "attn_policy", "batch_axes", "cache_pspecs_for",
         "make_cell", "sharding_rules")},
-    "models/rglru.py": {"rglru_train": TRAIN},
-    "models/ssm.py": {"ssd_chunked": TRAIN, "ssm_train": TRAIN},
-    "models/transformer.py": {n: TRAIN for n in (
-        "rec_layer_train", "ssm_layer_train")},
     "train/optimizer.py": {"zero1_pspec": _ZERO1, "opt_state_pspecs": _ZERO1},
     "train/train_step.py": {
         "compressed_psum": "JAX construct (an int8 all-reduce over a "

@@ -247,17 +247,6 @@ def test_loss_gradients_match_jax_grad(arch, dtype):
         assert err <= BF16_GRAD_REL, err
 
 
-@pytest.mark.parametrize("arch", ["mamba2_780m", "recurrentgemma_2b"])
-def test_next_slice_families_raise(arch):
-    cfg = get_config(arch).reduced()
-    model = build_model(cfg, device="cpu")
-    params = model.init(torch.Generator().manual_seed(0))
-    tb = _port_batch(_batch(cfg))
-    for fn in (model.forward, model.loss_fn, model.prefill):
-        with pytest.raises(NotImplementedError, match="next training slice"):
-            fn(params, tb)
-
-
 # ---------------------------------------------------------------------------
 # optimizer
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 """The LM phases alone, and the decode step time of a checkout.
 
     python3 tools/lm_probe.py phases
-    python3 tools/lm_probe.py train
+    python3 tools/lm_probe.py train [--arch ARCH ...]
     python3 tools/lm_probe.py step --root DIR [--layers N]
 
 ``phases`` builds the kernels and runs ``chip_smoke.py``'s ``lm`` and
@@ -10,9 +10,11 @@
 this tool), then prints their kernel rows as JSON. It is for iterating on
 those phases without the MDRQ phases before them; it prints no contract
 line, so a run of it is never mistaken for a run of ``chip_smoke.py``.
-``train`` does the same for the train phase's MoE and encoder-decoder parts
-(``train_families_parts``) and the LM examples (``lm_examples_part``), and
-prints their kernel launches.
+``train`` does the same for the train phase's parts of the other families
+(``train_families_parts``: MoE, the encoder-decoder, Mamba-2 and
+RecurrentGemma) and the LM examples (``lm_examples_part``), and prints
+their kernel launches; ``--arch`` runs only the named families' parts and
+no examples.
 
 ``step`` imports ``repro_torch`` from ``DIR/src`` (a checkout of this
 repository, for example the parent commit unpacked with ``git archive``),
@@ -70,7 +72,7 @@ def phases() -> int:
     return 0
 
 
-def train() -> int:
+def train(archs: list[str] | None = None) -> int:
     sys.path.insert(0, str(HERE))
     import shutil
     import chip_smoke as cs
@@ -84,6 +86,13 @@ def train() -> int:
     print(cs.nvidia_smi_line(), flush=True)
     with cs.phase("build"):
         _build.build()
+    if archs:
+        known = [a for a, _ in cs.TRAIN_FAMILIES]
+        if set(archs) - set(known):
+            print(f"lm_probe: --arch takes {known}", file=sys.stderr)
+            return 2
+        cs.TRAIN_FAMILIES = tuple(f for f in cs.TRAIN_FAMILIES
+                                  if f[0] in archs)
     launches = {}
     with cs.phase("train:families"):
         shutil.rmtree(cs.TRAIN_DIR, ignore_errors=True)
@@ -91,8 +100,9 @@ def train() -> int:
             launches["train"] = cs.train_families_parts()
         finally:
             shutil.rmtree(cs.TRAIN_DIR, ignore_errors=True)
-    with cs.phase("examples:lm"):
-        launches["examples"] = cs.lm_examples_part()
+    if not archs:
+        with cs.phase("examples:lm"):
+            launches["examples"] = cs.lm_examples_part()
     print(json.dumps({"launches": launches}))
     return 0
 
@@ -165,7 +175,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="mode", required=True)
     sub.add_parser("phases")
-    sub.add_parser("train")
+    tr = sub.add_parser("train")
+    tr.add_argument("--arch", nargs="+", default=None)
     st = sub.add_parser("step")
     st.add_argument("--root", type=Path, required=True)
     st.add_argument("--layers", type=int, default=12)
@@ -173,7 +184,7 @@ def main(argv=None) -> int:
     if args.mode == "phases":
         return phases()
     if args.mode == "train":
-        return train()
+        return train(args.arch)
     return step(args.root.resolve(), args.layers)
 
 
