@@ -280,6 +280,19 @@ non-zero without printing a result:
                arms, the pair included, within ``PREFILL_SSM_BF16_ATOL``).
                The training path's launches are added to the kernel rows
                they name.
+ 20. dryrun  — the mesh and dry-run tools (``repro_torch.launch.dryrun``)
+               in one subprocess, so no process group stays here: rank 0's
+               program of smollm-360m x ``train_4k`` and qwen3-8b x
+               ``decode_32k`` on the 16 x 16 production mesh (a ``fake``
+               world of 256 ranks, a ``cuda`` mesh) at full width and
+               depth, first on the meta device, then ``--execute`` with
+               real shards on cuda:0 (16 x 4,096 tokens; 8 sequences x
+               2,048 cache slots a rank). Gates, per cell: the executed
+               run's argument bytes, local FLOPs and collective counts per
+               kind and mesh axis equal its dry run's, and its
+               ``max_memory_allocated`` within ``DRYRUN_MEM_RTOL`` of the
+               predicted peak. Printed: predicted and measured GB, the
+               step's ms, beside the nvidia-smi line.
 
 The last three lines are the kernel table (JSON), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -511,6 +524,18 @@ TRAIN_FAMILIES = (("deepseek_moe_16b", dict(n_layers=2)),
 # Trainer steps of each of those parts: a median of 5 timed steps; 6 (10
 # before), for the script's time
 TRAIN_FAMILY_STEPS = 6
+
+
+# The dry-run phase's cells (arch, shape) on the 16 x 16 mesh, and how far
+# the card's allocated peak may sit from the predicted one
+DRYRUN_CELLS = (("smollm_360m", "train_4k"), ("qwen3_8b", "decode_32k"))
+DRYRUN_MEM_RTOL = 0.10
+DRYRUN_SCRIPT = """
+import json, sys
+from repro_torch.launch import dryrun
+for arch, shape in json.loads(sys.argv[2]):
+    dryrun.run_cell(arch, shape, False, sys.argv[1], execute=True)
+"""
 
 
 class CheckFailed(AssertionError):
@@ -4263,6 +4288,50 @@ def train_phase() -> dict:
             for k in sorted({k for p in parts for k in p})}
 
 
+def dryrun_phase(smi: str) -> None:
+    """The dry run and ``--execute`` of ``DRYRUN_CELLS`` in a subprocess;
+    each executed run held against its dry run."""
+    import tempfile
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        run = subprocess.run(
+            [sys.executable, "-c", DRYRUN_SCRIPT, out,
+             json.dumps(DRYRUN_CELLS)], cwd=ROOT, env=env, timeout=600,
+            capture_output=True, text=True)
+        print(indented("\n".join(
+            line for line in run.stdout.splitlines()
+            if not line.startswith("[rank0]:W"))), flush=True)
+        check(run.returncode == 0,
+              f"dry run exited {run.returncode}: {run.stderr[-3000:]}")
+        recs = [json.loads((Path(out) / f"{a}__{s}__16x16.json").read_text())
+                for a, s in DRYRUN_CELLS]
+    for rec in recs:
+        ex, mem = rec["execute"], rec["memory_analysis"]
+        label = f"{rec['arch']} x {rec['shape']} x {rec['mesh']}"
+        check(rec["mesh_device"] == "cuda", f"{label}: a {rec['mesh_device']} mesh")
+        check(ex["argument_size_in_bytes"] == mem["argument_size_in_bytes"],
+              f"{label}: argument bytes {ex['argument_size_in_bytes']} "
+              f"executed, {mem['argument_size_in_bytes']} predicted")
+        check(ex["flops_per_device"] == rec["flops_per_device"],
+              f"{label}: FLOPs {ex['flops_per_device']} executed, "
+              f"{rec['flops_per_device']} predicted")
+        check(ex["collective_counts"] == rec["collective_counts"],
+              f"{label}: collectives {ex['collective_counts']} executed, "
+              f"{rec['collective_counts']} predicted")
+        peak, got = mem["peak_size_in_bytes"], ex["max_memory_allocated"]
+        check(abs(got - peak) <= DRYRUN_MEM_RTOL * peak,
+              f"{label}: {got / 1e9:.3f} GB allocated at peak, "
+              f"{peak / 1e9:.3f} GB predicted")
+        print(f"  {label}: predicted {peak / 1e9:.3f} GB (arguments "
+              f"{mem['argument_size_in_bytes'] / 1e9:.3f}), measured "
+              f"{got / 1e9:.3f} GB; {rec['flops_per_device']:.4e} FLOPs a "
+              f"rank; collectives {rec['collective_counts']}; step "
+              f"{ex['step_ms']:.1f} ms (dry run {rec['compile_s']} s) on "
+              f"{smi}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -4421,6 +4490,9 @@ def main() -> int:
         # from the checkpoint) and row 12b (the trained MoE's served run)
         for r in rows:
             r["launches"] += launches.get(r["name"], 0)
+
+    with phase("dryrun"):
+        dryrun_phase(smi)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

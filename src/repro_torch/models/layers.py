@@ -30,11 +30,14 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch import numerics
 from repro_torch.kernels import ops
 from repro_torch.kernels.reducers import topk_ascending_ties
-from repro_torch.models.params import dense_init, ones_init
+from repro_torch.models import shardctx
+from repro_torch.models.params import P, dense_init, ones_init
 
 F32 = torch.float32
 # large negative for masks, dtype-derived so it stays finite after bf16 casts
@@ -128,15 +131,20 @@ def attention_init(cfg, generator: torch.Generator, device,
     return p
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one matmul over the flattened (h, k)."""
-    return (x @ w.reshape(w.shape[0], -1)).view(*x.shape[:2], *w.shape[1:])
+def _proj(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matmul over the flattened (h, k);
+    ``mesh``, the ``shardctx`` mesh, lays the product out under one."""
+    w2 = w.reshape(w.shape[0], -1)
+    y = x @ w2
+    if mesh is not None:
+        y = shardctx.matmul_out(y, x, w2)
+    return y.view(*x.shape[:2], *w.shape[1:])
 
 
-def _qkv(p, x, positions, cfg):
-    q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
+def _qkv(p, x, positions, cfg, mesh):
+    q = _proj(x, p["wq"], mesh)
+    k = _proj(x, p["wk"], mesh)
+    v = _proj(x, p["wv"], mesh)
     if cfg.qk_norm and "q_norm" in p:
         q = headwise_rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = headwise_rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -150,8 +158,14 @@ def _sdpa(q, k, v, mask, n_kv: int, scores_f32: bool = True):
 
     q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); mask: (B|1, Sq, Skv) bool.
     scores_f32=False keeps the score tensor in the activation dtype with a
-    float32 running max / denominator.
+    float32 running max / denominator. DTensors go to ``_sdpa_sharded``.
     """
+    if isinstance(q, DTensor):
+        return _sdpa_sharded(q, k, v, mask, n_kv, scores_f32)
+    return _grouped_attention(q, k, v, mask, n_kv, scores_f32)
+
+
+def _grouped_attention(q, k, v, mask, n_kv: int, scores_f32: bool):
     b, sq, h, hd = q.shape
     g = h // n_kv
     qg = q.reshape(b, sq, n_kv, g, hd)
@@ -175,11 +189,68 @@ def _sdpa(q, k, v, mask, n_kv: int, scores_f32: bool = True):
     return out.reshape(b, sq, h, hd)
 
 
+def _local_heads(q, k, v, mask, n_kv: int):
+    """How each rank attends on its own shards of DTensors q, k, v and
+    mask (``_sdpa``'s shapes): (k's and v's gradient placements, first kv
+    head and kv head count of this rank's slice of its local k and v), or
+    None. Each mesh dim must split the batch of all four, or none of
+    them, or the query heads, with k and v split on their heads too (the
+    same group on every rank) or replicated (then sliced to the kv heads
+    of this rank's query heads, their gradient a partial sum)."""
+    mesh, h = q.device_mesh, q.shape[2]
+    g = h // n_kv
+    grads, kv0, nk = [], 0, n_kv
+    for i, pls in enumerate(zip(q.placements, k.placements, v.placements,
+                                mask.placements)):
+        pq, pk, pv, pm = pls
+        if all(p == pq for p in pls) and pq in (Shard(0), Replicate()):
+            grads.append(pk)
+            continue
+        n = mesh.size(i)
+        if not (pq == Shard(2) and pk == pv and pm == Replicate()
+                and h % n == 0 and nk == n_kv):
+            return None
+        h_l = h // n
+        if pk == Shard(2) and n_kv % n == 0:
+            grads.append(pk)
+            nk = n_kv // n
+        elif pk == Replicate() and (h_l % g == 0 or g % h_l == 0):
+            grads.append(Partial())
+            kv0 = mesh.get_local_rank(i) * h_l // g
+            nk = max(1, h_l // g)
+        else:
+            return None
+    return grads, kv0, nk
+
+
+def _sdpa_sharded(q, k, v, mask, n_kv: int, scores_f32: bool):
+    """``_sdpa`` of DTensors. Where ``_local_heads`` finds a layout, each
+    rank attends on its own shards (its batch rows, its query heads and
+    their kv heads), as XLA partitions the reference's grouped products,
+    and the output is laid out as q. Otherwise (a decode cache whose slots
+    are split over `model`) split heads are gathered, since the grouped
+    products flatten (batch, kv head, group), which DTensor (torch 2.11)
+    refuses with a dim after the first split, and DTensor places each
+    product (a decode query is one token)."""
+    how = _local_heads(q, k, v, mask, n_kv)
+    if how is None:
+        q, k, v = (shardctx.replicate_dim(t, 2) for t in (q, k, v))
+        out = _grouped_attention(q, k, v, mask, n_kv, scores_f32)
+        return shardctx.replicate_dim(out, 2)
+    grads, kv0, nk = how
+    kl = k.to_local(grad_placements=grads)[:, :, kv0:kv0 + nk]
+    vl = v.to_local(grad_placements=grads)[:, :, kv0:kv0 + nk]
+    out = _grouped_attention(q.to_local(grad_placements=q.placements), kl,
+                             vl, mask.to_local(), nk, scores_f32)
+    return DTensor.from_local(out, q.device_mesh, q.placements,
+                              run_check=False)
+
+
 def _train_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
                 window: Optional[int]) -> torch.Tensor:
     """(B, Sq, Skv) mask from absolute positions."""
     d = q_pos[:, :, None] - k_pos[:, None, :]
-    m = torch.ones(d.shape, dtype=torch.bool, device=d.device)
+    m = torch.ones_like(d, dtype=torch.bool)
     if causal:
         m &= d >= 0
     if window is not None:
@@ -192,9 +263,22 @@ def mha_train(p, x, positions, cfg, *, causal: bool = True,
               q_chunk: Optional[int] = None) -> torch.Tensor:
     """Full-sequence self-attention (the encoder's; the training slice's
     decoder layers reuse it); query-chunked when S > q_chunk, as the
-    reference (whose mesh constraints have no one-device counterpart)."""
+    reference.
+
+    ``cfg.attn_batch_shard`` (policy-C archs): under a mesh, reshard the
+    batch over (data..., model) around the attention so replicated-head
+    compute splits over the full mesh instead of the data axis only (a
+    no-op without a mesh)."""
     q_chunk = q_chunk or cfg.q_chunk
-    q, k, v = _qkv(p, x, positions, cfg)
+    mesh = shardctx.mesh()
+    shard2d = False
+    if mesh is not None and cfg.attn_batch_shard:
+        bm = shardctx.batch_model_axes()
+        shard2d = x.shape[0] % shardctx.axes_size(bm) == 0
+    if shard2d:
+        x = shardctx.constrain(x, P(bm, None, None))
+        positions = shardctx.constrain(positions, P(bm, None))
+    q, k, v = _qkv(p, x, positions, cfg, mesh)
     b, s = x.shape[:2]
     if s <= q_chunk:
         mask = _train_mask(positions, positions, causal, window)
@@ -208,7 +292,10 @@ def mha_train(p, x, positions, cfg, *, causal: bool = True,
                               window),
                   cfg.n_kv_heads, cfg.attn_scores_f32)
             for i in range(0, s, q_chunk)], dim=1)
-    return _proj_out(out, p["wo"])
+    y = _proj_out(out, p["wo"], mesh)
+    if shard2d:
+        y = shardctx.constrain(y, P(shardctx.batch_axes(), None, None))
+    return y
 
 
 # -- decode -----------------------------------------------------------------
@@ -222,6 +309,19 @@ class KVCache:
 
 def _ring_slot(pos: torch.Tensor, window: int) -> torch.Tensor:
     return torch.remainder(pos, window)
+
+
+def _write_slot(cache: torch.Tensor, slot: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """``cache[rows, slot] = new`` in place under a mesh; cache (B, S,
+    ...), new (B, ...). The batch and the slots are split over ranks, and
+    each rank selects the new row into its own shard where the slot falls
+    (how XLA's SPMD partitioner splits the reference's
+    dynamic_update_slice on a sharded dim): the whole shard is rewritten."""
+    hit = torch.arange(cache.shape[1], device=slot.device) == slot[:, None]
+    hit = hit.view(*hit.shape, *([1] * (cache.dim() - 2)))
+    # an in-place write of each rank's own shard, no copy between devices
+    cache.copy_(torch.where(hit, new[:, None], cache))  # mdrqlint: disable=raw-shard-map
 
 
 def decode_key_positions(pos: torch.Tensor, n_slots: int,
@@ -308,7 +408,12 @@ def mha_decode(p, x1, pos, k_cache, v_cache, cfg, *,
     if cfg.kv_block_prune and window is not None:
         raise ValueError("block pruning targets full caches: a windowed "
                          "(ring) cache cannot be pruned")
-    q, k, v = _qkv(p, x1, pos[:, None], cfg)
+    mesh = shardctx.mesh()
+    if cfg.kv_block_prune and mesh is not None:
+        raise NotImplementedError(
+            "kv_block_prune under a mesh (the kv_visit wrapper on DTensors) "
+            "is ROADMAP queue 1, item 5b")
+    q, k, v = _qkv(p, x1, pos[:, None], cfg, mesh)
     b, n_slots, n_kv, hd = k_cache.shape
     h = cfg.n_heads
     slot = pos if window is None else _ring_slot(pos, window)
@@ -318,13 +423,17 @@ def mha_decode(p, x1, pos, k_cache, v_cache, cfg, *,
     if cfg.kv_cache_int8:
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)
-        k_cache[rows, slot] = kq[:, 0]
-        v_cache[rows, slot] = vq[:, 0]
-        extras["k_scale"][rows, slot] = ks[:, 0]
-        extras["v_scale"][rows, slot] = vs[:, 0]
+        writes = [(k_cache, kq[:, 0]), (v_cache, vq[:, 0]),
+                  (extras["k_scale"], ks[:, 0]),
+                  (extras["v_scale"], vs[:, 0])]
     else:
-        k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+        writes = [(k_cache, k[:, 0].to(k_cache.dtype)),
+                  (v_cache, v[:, 0].to(v_cache.dtype))]
+    for cache, new in writes:
+        if mesh is None:
+            cache[rows, slot] = new
+        else:
+            _write_slot(cache, slot, new)
 
     kpos = decode_key_positions(pos, n_slots, window)
     mask = (kpos >= 0) & (kpos <= pos[:, None])                  # (B, S)
@@ -371,32 +480,37 @@ def mha_decode(p, x1, pos, k_cache, v_cache, cfg, *,
         else:
             kf, vf = k_cache, v_cache
         out = _sdpa(q, kf, vf, mask[:, None, :], n_kv, cfg.attn_scores_f32)
-    return _proj_out(out, p["wo"])
+    return _proj_out(out, p["wo"], mesh)
 
 
 # -- cross-attention (encoder-decoder) ---------------------------------------
 def cross_kv(p, enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Cross K/V (B, S_enc, KV, hd) from the encoder output (cached for
     decode)."""
-    return _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+    mesh = shardctx.mesh()
+    return _proj(enc_out, p["wk"], mesh), _proj(enc_out, p["wv"], mesh)
 
 
 def cross_attend(p, x, k, v, cfg, enc_mask=None) -> torch.Tensor:
     """Cross-attention: no RoPE, no causality; enc_mask: (B, S_enc) or
     None."""
-    q = _proj(x, p["wq"])
+    mesh = shardctx.mesh()
+    q = _proj(x, p["wq"], mesh)
     b, sq = x.shape[:2]
     skv = k.shape[1]
     mask = torch.ones((b, sq, skv), dtype=torch.bool, device=x.device) \
         if enc_mask is None else enc_mask[:, None, :].expand(b, sq, skv)
     out = _sdpa(q, k, v, mask, cfg.n_kv_heads)
-    return _proj_out(out, p["wo"])
+    return _proj_out(out, p["wo"], mesh)
 
 
-def _proj_out(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd") as one matmul."""
+def _proj_out(out: torch.Tensor, wo: torch.Tensor, mesh) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul (laid out under ``mesh`` as
+    ``_proj``)."""
     b, s = out.shape[:2]
-    return out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+    o2, w2 = out.reshape(b, s, -1), wo.reshape(-1, wo.shape[-1])
+    y = o2 @ w2
+    return y if mesh is None else shardctx.matmul_out(y, o2, w2)
 
 
 # --------------------------------------------------------------------------
@@ -439,7 +553,10 @@ def embedding_init(cfg, vocab_pad: int, generator: torch.Generator,
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    x = p["table"][tokens.long()]
+    if shardctx.mesh() is None:
+        x = p["table"][tokens.long()]
+    else:
+        x = _embed_vocab_parallel(p["table"], tokens)
     return x * as_dtype_scalar(x.shape[-1] ** 0.5, x.dtype)
 
 
@@ -456,11 +573,122 @@ def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
 
     Padded vocabulary columns are filled with ``NEG`` (finite, dtype-derived)
     so they carry no probability mass, as in the reference.
+
+    Under a mesh the logits are a DTensor and the loss is
+    ``_xent_vocab_parallel``'s: the log-sum-exp and the gold logit below
+    would gather the whole vocabulary onto every rank.
     """
     logits = logits.float()
     if logits.shape[-1] > vocab_size:
         vocab_ids = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(vocab_ids < vocab_size, logits, NEG)
+    if shardctx.mesh() is not None:
+        return _xent_vocab_parallel(logits, labels)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return (lse - gold).mean()
+
+
+class _VocabParallelEmbed(torch.autograd.Function):
+    """Rows of ``tokens`` from this rank's vocabulary slice (V_local, D) of
+    the table, whose rows start at ``start``; a token outside the slice
+    reads zeros, and a SUM over ``group`` (the slices) gives every rank the
+    row. The gradient goes to the slice's rows of this rank's tokens."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, start: int, group):
+        local = tokens - start
+        inside = (local >= 0) & (local < table.shape[0])
+        idx = torch.where(inside, local, 0)
+        rows = table[idx] * inside[..., None].to(table.dtype)
+        ctx.save_for_backward(idx, inside)
+        ctx.v_local = table.shape[0]
+        return funcol.wait_tensor(funcol.all_reduce(rows, "sum", group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, inside = ctx.saved_tensors
+        g = grad * inside[..., None].to(grad.dtype)
+        out = grad.new_zeros((ctx.v_local, grad.shape[-1]))
+        out.index_put_((idx,), g, accumulate=True)
+        return out, None, None, None
+
+
+def _embed_vocab_parallel(table: torch.Tensor,
+                          tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` of a DTensor table under the ``shardctx`` mesh:
+    the table's vocabulary split over `model`, the tokens laid out as they
+    come (gathered over `model` if split there); each rank looks its tokens
+    up in its slice and the slices are summed (``_VocabParallelEmbed``).
+    The rows are laid out as the tokens, and the table's gradient is a
+    partial sum over the mesh dims that split the tokens. (Indexing would
+    gather the whole table, and DTensor's own vocabulary-parallel embedding
+    fails in the backward pass under torch 2.11.)"""
+    mesh = shardctx.mesh()
+    table = shardctx.constrain(table, P("model", None))
+    model = mesh.mesh_dim_names.index("model")
+    if tokens.placements[model] != Replicate():
+        tokens = tokens.redistribute(mesh, [
+            Replicate() if i == model else p
+            for i, p in enumerate(tokens.placements)])
+    local = table.to_local(grad_placements=[
+        Partial() if pt.is_shard() else p
+        for p, pt in zip(table.placements, tokens.placements)])
+    start = mesh.get_local_rank("model") * local.shape[0]
+    out = _VocabParallelEmbed.apply(local, tokens.to_local().long(), start,
+                                    mesh.get_group("model"))
+    return DTensor.from_local(out, mesh, tokens.placements, run_check=False)
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    """Per-token cross-entropy of this rank's vocabulary slice (N, V_local)
+    float32 of logits whose columns start at ``start``, reduced over the
+    ranks of ``group`` (the slices of one row): the row max and the sum
+    of exponentials by all-reduces (MAX, SUM), the gold logit by a SUM of
+    the one rank that holds it. The gradient, softmax minus the one-hot,
+    is local."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start: int, group):
+        v_local = logits.shape[1]
+        m = funcol.all_reduce(logits.amax(dim=-1), "max", group)
+        e = (logits - m[:, None]).exp()
+        z = funcol.all_reduce(e.sum(dim=-1), "sum", group)
+        local = labels - start
+        inside = (local >= 0) & (local < v_local)
+        col = torch.where(inside, local, 0)
+        gold = torch.where(inside, logits.gather(1, col[:, None])[:, 0], 0.0)
+        gold = funcol.all_reduce(gold, "sum", group)
+        ctx.save_for_backward(e / z[:, None], col, inside)
+        return z.log() + m - gold
+
+    @staticmethod
+    def backward(ctx, grad):
+        p, col, inside = ctx.saved_tensors
+        onehot = torch.zeros_like(p).scatter_(1, col[:, None],
+                                              inside[:, None].to(p.dtype))
+        return (p - onehot) * grad[:, None], None, None, None
+
+
+def _xent_vocab_parallel(logits: torch.Tensor,
+                         labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy of DTensor logits (B, S, V) under the
+    ``shardctx`` mesh: the logits laid out with the batch over the data
+    axes and the vocabulary over `model`, each rank's per-token losses by
+    ``_VocabParallelXent`` (all-reduces of one value per token, never the
+    vocabulary), their sum a partial over the data axes, all-reduced."""
+    mesh, ba = shardctx.mesh(), shardctx.batch_axes()
+    logits = shardctx.constrain(
+        logits, P(ba, *([None] * (logits.dim() - 2)), "model"))
+    labels = shardctx.constrain(labels, P(ba, *([None] * (labels.dim() - 1))))
+    local = logits.to_local()
+    start = mesh.get_local_rank("model") * local.shape[-1]
+    tok = _VocabParallelXent.apply(local.flatten(0, -2),
+                                   labels.to_local().long().flatten(), start,
+                                   mesh.get_group("model"))
+    names = mesh.mesh_dim_names
+    total = DTensor.from_local(
+        tok.sum(), mesh, [Partial() if a in ba else Replicate()
+                          for a in names], run_check=False)
+    return total.redistribute(mesh, [Replicate()] * len(names)) \
+        / labels.numel()

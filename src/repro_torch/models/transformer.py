@@ -23,10 +23,11 @@ A vlm's modality prefix (``batch["prefix_embeds"]``) enters only the
 training/prefill forward; decode embeds tokens alone, as the reference's
 does. ``cfg.remat != "none"`` recomputes each layer (each hybrid group) in
 the backward pass (``torch.utils.checkpoint``, the counterpart of
-``jax.checkpoint``; no value changes). ``scan_layers``, ``seq_shard_resid``
-and the reference's ``shardctx`` constraints place a layer loop and its
-activations on a TPU mesh; on one device they change nothing, so they have
-no counterpart here.
+``jax.checkpoint``; no value changes). ``scan_layers`` shapes the
+reference's TPU program and has no counterpart here. Under a ``shardctx``
+mesh the parameters and inputs are DTensors, and ``seq_shard_resid`` and
+``attn_batch_shard`` (``layers.mha_train``) redistribute activations as
+the reference's sharding constraints do; without a mesh both are no-ops.
 """
 from __future__ import annotations
 
@@ -40,7 +41,9 @@ from repro_torch import numerics
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
+from repro_torch.models import shardctx
 from repro_torch.models import ssm as S
+from repro_torch.models.params import P
 
 F32 = torch.float32
 VOCAB_MULT = 256  # pad vocab to a multiple of this, as the reference does
@@ -149,17 +152,34 @@ TRAIN_BODY = {
 }
 
 
-def run_layers(layers, x, body, remat: bool):
+def run_layers(layers, x, body, remat: bool, resid: P | None = None):
     """``body(lp, x) -> (x, aux)`` over a list of layers, the aux losses
     summed in layer order from a float32 zero, as the reference's
     ``_scan_stack``; with ``remat`` each layer runs under
-    ``torch.utils.checkpoint`` (recomputed in the backward pass)."""
+    ``torch.utils.checkpoint`` (recomputed in the backward pass). Under a
+    mesh, ``resid`` is the residual stream's layout after each layer."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     for lp in layers:
         x, aux_l = (checkpoint(body, lp, x, use_reentrant=False) if remat
                     else body(lp, x))
+        if resid is not None:
+            x = shardctx.constrain(x, resid)
         aux = aux + aux_l
     return x, aux
+
+
+def resid_spec(cfg, x) -> P | None:
+    """The residual stream's layout between layers under a mesh (None
+    without one): the batch over the data axes, replicated over `model`
+    (row-parallel outputs summed at the layer's end: DTensor, which places
+    each op on its own, would otherwise carry partial sums into the next
+    layer's norm and projections), or with ``seq_shard_resid`` the sequence
+    split over `model` (when it divides), as the reference's constraint."""
+    if shardctx.mesh() is None:
+        return None
+    seq = (cfg.seq_shard_resid
+           and x.shape[1] % shardctx.axes_size("model") == 0)
+    return P(shardctx.batch_axes(), "model" if seq else None, None)
 
 
 def remat_enabled(cfg) -> bool:
@@ -228,9 +248,11 @@ class DecoderLM:
             pre = batch["prefix_embeds"].to(x.dtype)  # (B, P, D) stub frontend
             x = torch.cat([pre, x], dim=1)
         b, s = x.shape[:2]
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device)[None].expand(b, s)
-        return x, positions
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+        if shardctx.mesh() is None:
+            return x, positions[None].expand(b, s)
+        # under a mesh: zeros laid out like x's first two dims, plus arange
+        return x, torch.zeros_like(x[..., 0], dtype=torch.int32) + positions
 
     def forward(self, params, batch):
         """(B, S) tokens -> ((B, S_total, vocab_pad) float32 logits, aux)."""
@@ -243,9 +265,11 @@ class DecoderLM:
     def _run_stack(self, params, x, positions):
         cfg = self.cfg
         remat = remat_enabled(cfg)
-        # Python loops over the layer lists: the reference's scan_layers,
-        # seq_shard_resid and shardctx constraints shape a TPU program and
-        # its mesh placement, and have no effect on one device.
+        # Python loops over the layer lists (the reference's scan_layers
+        # shapes a TPU program and has no counterpart here).
+        resid = resid_spec(cfg, x)
+        if resid is not None:
+            x = shardctx.constrain(x, resid)
         if cfg.family == "hybrid":
             x, aux = run_layers(
                 params["groups"], x,
@@ -262,7 +286,8 @@ class DecoderLM:
                 f"{cfg.name}: no training body for the {cfg.family} family")
         layer = TRAIN_BODY[cfg.family]
         return run_layers(params["layers"], x,
-                          lambda lp, x: layer(lp, x, positions, cfg), remat)
+                          lambda lp, x: layer(lp, x, positions, cfg), remat,
+                          resid)
 
     def loss_fn(self, params, batch):
         """-> (total loss, {"loss", "aux_loss"}); with a modality prefix the

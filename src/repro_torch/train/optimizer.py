@@ -15,8 +15,13 @@ The step count and the learning rate stay on the host as Python numbers
 device), so a step makes no host sync; the gradient norm and the clip scale
 stay on the device.
 
-The reference's ZeRO-1 layout (``zero1_pspec``, ``opt_state_pspecs``) shards
-the state over a TPU mesh axis; one device has nothing to shard.
+ZeRO-1 (``zero1_pspec``, ``opt_state_pspecs``, ``zero1_opt_state``): on a
+mesh every optimizer-state leaf is additionally sharded over the `data`
+axis on the first free (unsharded, divisible) dimension. ``adamw_update``
+then works on DTensors: the gradients are all-reduced where the clip norm
+needs them, the float32 master and moments update in their data shards,
+and each new parameter is gathered back to its own placements (ZeRO-1's
+all-gather). On one device nothing of this runs.
 """
 from __future__ import annotations
 
@@ -24,8 +29,11 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.params import leaves, map_tree, unflatten
+from repro_torch.models.params import (DEFAULT_RULES, P, axes_for, leaves,
+                                       map_tree, placements, shard_like,
+                                       spec_leaves, unflatten)
 
 F32 = torch.float32
 
@@ -108,10 +116,66 @@ def adamw_update(params, grads, opt_state: dict, cfg: OptConfig):
                                 leaves(opt_state["m"]),
                                 leaves(opt_state["v"]), leaves(grads))]
     master2 = unflatten(opt_state["master"], [o[0] for o in out])
-    new_params = unflatten(params, [o[0].to(p.dtype) for o, p in
-                                    zip(out, leaves(params))])
+    new_params = unflatten(params, [_placed_like(o[0].to(p.dtype), p)
+                                    for o, p in zip(out, leaves(params))])
     new_state = {"master": master2,
                  "m": unflatten(opt_state["m"], [o[1] for o in out]),
                  "v": unflatten(opt_state["v"], [o[2] for o in out]),
                  "step": step}
     return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _placed_like(new: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``new`` in ``p``'s placements when ``p`` is a DTensor (a ZeRO-1
+    master sharded over `data` is gathered back); ``new`` otherwise."""
+    if isinstance(p, DTensor) and tuple(new.placements) != tuple(p.placements):
+        return new.redistribute(p.device_mesh, p.placements)
+    return new
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 sharding of the optimizer state
+# ---------------------------------------------------------------------------
+def zero1_pspec(axes: tuple, shape: tuple, rules: dict, data_axes=("data",),
+                data_size: int = 16) -> P:
+    """Param pspec with the first free divisible dim additionally data-sharded."""
+    base = [rules.get(a) if a is not None else None for a in axes]
+    for i, (r, s) in enumerate(zip(base, shape)):
+        if r is None and s % data_size == 0:
+            base[i] = data_axes if len(data_axes) > 1 else data_axes[0]
+            break
+    return P(*base)
+
+
+def opt_state_pspecs(params, rules: dict | None = None, data_axes=("data",),
+                     data_size: int = 16):
+    """P tree for ``init_opt_state(params)`` with the ZeRO-1 layout
+    (``params`` the global parameter tree, on any device)."""
+    rules = dict(DEFAULT_RULES if rules is None else rules)
+    flat = [zero1_pspec(a, tuple(t.shape), rules, data_axes, data_size)
+            for a, t in zip(spec_leaves(axes_for(params)), leaves(params))]
+    leaf_specs = unflatten(params, flat)
+    return {"master": leaf_specs, "m": leaf_specs, "v": leaf_specs,
+            "step": P()}
+
+
+def zero1_opt_state(params, mesh, rules: dict | None = None,
+                    data_axes=("data",), device=None) -> dict:
+    """``init_opt_state`` of the global parameter tree ``params``, laid out
+    by ``opt_state_pspecs`` on ``mesh`` as DTensors: each rank keeps its
+    shard of the float32 master and of the zero moments (on ``meta`` or
+    with ``device`` given only the shard is made, empty; see
+    ``params.shard_like``)."""
+    size = 1
+    for a in data_axes:
+        size *= mesh.size(list(mesh.mesh_dim_names).index(a))
+    specs = opt_state_pspecs(params, rules, data_axes, size)["master"]
+    pls = [placements(s, mesh) for s in spec_leaves(specs)]
+
+    def state(fill):
+        return unflatten(params, [shard_like(fill(t), mesh, pl, device)
+                                  for t, pl in zip(leaves(params), pls)])
+    return {"master": state(lambda t: t.detach().to(F32, copy=True)),
+            "m": state(lambda t: torch.zeros_like(t, dtype=F32)),
+            "v": state(lambda t: torch.zeros_like(t, dtype=F32)),
+            "step": 0}

@@ -47,7 +47,9 @@ counts ``BUDGET_torch.json`` certifies; so do ``ColumnarScan.mask_batch``,
 sync each). The training path: one reduced float32 train step of each
 trainable architecture (dense, vlm, MoE, the encoder-decoder) on the card
 against the same step on the CPU, and the data pipeline's admission filter
-on the card against an engine on the plain backend.
+on the card against an engine on the plain backend. The dry run
+(``launch.dryrun``) of two reduced cells executed on the card against its
+prediction on the meta device.
 """
 import contextlib
 import dataclasses
@@ -1461,3 +1463,28 @@ def test_pipeline_admits_on_the_card_as_the_plain_backend(dev):
     assert any(launches.get(k, 0) for k in (
         "range_scan_tiles", "range_scan_vertical", "range_scan_visit")), \
         launches
+
+
+@pytest.mark.parametrize("arch,shape", [("smollm_360m", "train_4k"),
+                                        ("qwen3_8b", "decode_32k")])
+def test_dryrun_execute_reads_its_prediction_on_the_card(dev, arch, shape,
+                                                         tmp_path):
+    """Rank 0's program of a reduced config (2-3 layers, d_model 128; the
+    cell's shapes as published) on the 16 x 16 mesh: executed with real
+    shards on the card, its argument bytes, local FLOPs and collective
+    counts equal the dry run's on the meta device, and its allocated peak
+    is within 10% of the predicted one, as ``chip_smoke.py``'s dryrun phase
+    holds the full configs (the prediction counts cuBLAS's workspace)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell(arch, shape, False, str(tmp_path),
+                          cfg_override=get_config(arch).reduced(),
+                          execute=True, verbose=False)
+    ex, mem = rec["execute"], rec["memory_analysis"]
+    assert rec["mesh_device"] == "cuda"
+    assert ex["argument_size_in_bytes"] == mem["argument_size_in_bytes"]
+    assert ex["flops_per_device"] == rec["flops_per_device"]
+    assert ex["collective_counts"] == rec["collective_counts"]
+    peak = mem["peak_size_in_bytes"]
+    assert abs(ex["max_memory_allocated"] - peak) <= 0.10 * peak, \
+        (ex["max_memory_allocated"], peak)

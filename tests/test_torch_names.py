@@ -25,19 +25,11 @@ ITEM3 = "ROADMAP queue 1 item 3: the benchmark PR"
 ITEM5 = "ROADMAP queue 1 item 5: the mesh and compile tools"
 
 MISSING_MODULES = {
-    "launch/dryrun.py": ITEM5,
-    "launch/mesh.py": ITEM5,
     "launch/perf.py": ITEM5,
-    "models/shardctx.py": ITEM5,
 }
 
-_ZERO1 = ("JAX construct (ZeRO-1 PartitionSpecs of the optimizer state over "
-          "a TPU mesh axis); one device has nothing to shard: " + ITEM5)
-
 _BARE = ("JAX construct (a value tagged with its logical sharding axes); "
-         "port: bare tensors")
-_SHARDING = ("JAX construct (logical axes -> PartitionSpecs / NamedShardings "
-             "over a TPU mesh); one device has nothing to shard: " + ITEM5)
+         "port: bare tensors, their axes in models.params.LEAF_AXES")
 
 _AOT = ("JAX construct (AOT compile cache / retrace probe); port: the warm "
         "keys of ops.counted and PipelinedMDRQServer.warmup")
@@ -63,25 +55,11 @@ MISSING_NAMES = {
         "Param": _BARE,
         "is_param": _BARE,
         "split_tree": _BARE + "; count_params and leaves take the tree "
-                              "as it is",
-        "abstract_like": "JAX construct (ShapeDtypeStructs for tracing "
-                         "without arrays); port: none needed, nothing is "
-                         "traced (a meta-device build is " + ITEM5 + ")",
+                              "as it is, axes_for gives its axes",
         "stack_layer_params": "JAX construct (a stacked leading layer axis "
                               "for lax.scan); port: per-layer lists "
                               "(models.convert.from_jax_params unstacks "
-                              "the reference's)",
-        "DEFAULT_RULES": _SHARDING,
-        "pspec_tree": _SHARDING,
-        "sharding_tree": _SHARDING},
-    "models/registry.py": {n: ITEM5 for n in (
-        "CellSpec", "TP", "attn_policy", "batch_axes", "cache_pspecs_for",
-        "make_cell", "sharding_rules")},
-    "train/optimizer.py": {"zero1_pspec": _ZERO1, "opt_state_pspecs": _ZERO1},
-    "train/train_step.py": {
-        "compressed_psum": "JAX construct (an int8 all-reduce over a "
-                           "shard_map axis name); port: a DataMesh "
-                           "collective (core/distributed.py), " + ITEM5},
+                              "the reference's)"},
 }
 
 
